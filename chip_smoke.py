@@ -4,23 +4,42 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
+Two paths run, each with its kernel: the batched spider ``robot_walk``
+rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``) and
+the CLI's sequential ``run`` (one world, the per-env physics step, the
+fat-row sweep ``kernels/csrc/solver_sweep.cu`` twice per spider step).
 Phases, each printed with its seconds:
 
-1. device: the card's name and power limit (nvidia-smi), torch and nvcc versions;
-2. build: nvcc builds every kernel of the main path (the sequential-impulse
-   sweep) and prints its registers and spills;
-3. kernel check: the sweep's inputs are captured at B=2048 from the first
-   step after a reset of the spider, for bf16 rows (the shipped default) and
-   f32 rows; the kernel runs on all envs, its plain PyTorch version on the
-   card on 256 of them, and the outputs must agree within TOL;
-4. step check: one physics step of 4 of those envs on the card (kernel)
-   against the same step on the CPU (plain version), f32 rows;
+1. device: the card's name, power limit and top SM clock (nvidia-smi),
+   torch and nvcc versions;
+2. build: nvcc builds both kernels, one process each, started together, and
+   prints their registers and spills;
+3. kernel check: the slim sweep's inputs are captured at B=2048 from the
+   first step after a reset of the spider, for bf16 rows (the shipped
+   default) and f32 rows; the kernel runs on all envs, its plain PyTorch
+   version on the card on 256 of them, and the outputs must agree within TOL;
+4. step check: one batched physics step of 4 of those envs on the card
+   (kernel) against the same step on the CPU (plain version), f32 rows;
 5. main path: ``RobotWalk`` at B=2048, ``reset`` (60 settle steps) and 120
    steps of uniform random actions from a seeded ``torch.Generator``; the
-   outputs must be finite, the spider on the floor, and the sweep kernel
+   outputs must be finite, the spider on the floor, and the slim sweep
    launched exactly once per physics step (launch counts set to 0 just
    before, read just after);
-6. the kernels line and the last line (one JSON object each).
+6. fat kernel check: the fat-row sweep's inputs (push pass and velocity
+   sweep) are captured from the first per-env spider step after a seeded
+   reset; kernel and plain version on the card must agree within TOL at B=1,
+   and on 64 slightly perturbed copies (the batched call shape); the push
+   pass must leave some push velocity non-zero;
+7. per-env step check: that per-env spider step on the card (kernel)
+   against the same step on the CPU (plain version);
+8. sequential run path: ``cli.main([... "run" ...])`` on cartpole and
+   cartpole3d (3 episodes each) and the spider robot_walk (1 episode), random
+   agent; episode lines printed, returns finite, the fat-row sweep launched
+   exactly once (cartpoles) or twice (spider) per physics step and the slim
+   sweep never (counts set to 0 just before each env's run, read just after);
+   each cartpole run's first fat-row sweep call is held against its plain
+   version within TOL;
+9. the kernels line and the last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -29,11 +48,16 @@ without ``--cpu``) the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # |kernel - plain| bound on the sweep's outputs (vel6', lam', push_vel6).
 # The two differ only by f32 rounding (FMA contraction, summation order):
@@ -51,6 +75,22 @@ H100_FP32_FLOPS = 67e12
 REPLACES = "evomotion_tpu/physics/solver_pallas.py:656"
 TPU_KERNEL = ("solver_sweep_envlast_slim -> _sweep_kernel_envlast_slim "
               "(evomotion_tpu/physics/solver_pallas.py:508, pallas_call :592)")
+FAT_REPLACES = "evomotion_tpu/physics/solver_pallas.py:98"
+FAT_TPU_KERNEL = ("solver_sweep -> _sweep_kernel "
+                  "(evomotion_tpu/physics/solver_pallas.py:191, pallas_call :276)")
+# An estimate, not a measurement, printed apart from the kernels line: the
+# fat-row sweep at B=1 is a chain of dependent row visits, each reading
+# velocities the previous visit may have written. Its dependent fp32
+# operations per visit, as counted here: a 12-term dot product (one
+# multiply, then four levels of adds), rhs - jv, x inv_eff, + lam, the
+# two-sided clamp (2), the impulse delta, and the velocity update (one FMA):
+# 12. At an assumed 4-cycle fp32 latency a visit takes 48 cycles at the SM
+# clock that nvidia-smi reports; the shared-memory round trips that every
+# visit also pays are left out, so the true floor is higher.
+CHAIN_OPS = 12
+FP32_LATENCY_CYCLES = 4
+SEQ_EPISODES = {"cartpole": 3, "cartpole3d": 3, "robot_walk": 1}
+EPISODE_LINE = re.compile(r"^episode (\d+): (\d+) steps, return (\S+)$")
 
 
 def phase(name):
@@ -68,26 +108,38 @@ def fail(msg):
 
 
 class SweepCapture:
-    """Wraps the sweep entry the step calls: counts calls and, when armed,
-    keeps a copy of one call's inputs."""
+    """Stands in for a sweep module where a step module looks it up
+    (``step_module.<alias>``): counts the calls of its entry ``fn_name`` and,
+    while armed, keeps a copy of each call's inputs in ``captured`` (of the
+    first ``limit`` calls, where a limit is given)."""
 
-    def __init__(self, sweep_module, batched_module):
+    def __init__(self, sweep_module, step_module, alias, fn_name):
         self.sp = sweep_module
         self.calls = 0
         self.armed = False
-        self.inputs = None
-        self._orig = sweep_module.solver_sweep_envlast_slim
-        batched_module.sp = self  # the step calls self.solver_sweep_envlast_slim
+        self.limit = None
+        self.captured = []
+        self._orig = getattr(sweep_module, fn_name)
+        setattr(self, fn_name, self._call)
+        setattr(step_module, alias, self)
 
     def __getattr__(self, name):
         return getattr(self.sp, name)
 
-    def solver_sweep_envlast_slim(self, *args):
+    @property
+    def inputs(self):
+        return self.captured[0] if self.captured else None
+
+    def _call(self, *args):
         self.calls += 1
-        if self.armed:
-            self.inputs = [a.clone() if hasattr(a, "clone") else a for a in args]
-            self.armed = False
+        if self.armed and (self.limit is None or len(self.captured) < self.limit):
+            self.captured.append([a.clone() if hasattr(a, "clone") else a for a in args])
         return self._orig(*args)
+
+    def arm(self, limit=None):
+        self.captured = []
+        self.limit = limit
+        self.armed = True
 
 
 def sweep_flops(meta, n_iters, b):
@@ -121,6 +173,248 @@ def max_err(a_list, b_list):
     return max(float((a - b).abs().max()) for a, b in zip(a_list, b_list))
 
 
+def fat_sweep_flops(meta, n_iters, b):
+    """fp32 operations of one fat-row sweep call, counted row by row as the
+    kernel does them (csrc/solver_sweep.cu): J_a.v_a (12), the impulse
+    update (3) and delta (1), the velocity update of body A (12), the clamp
+    by kind (joint 2, normal 1, friction 4), and body B's J.v (13) and
+    update (12) unless it is static."""
+    per_env_iter = 0
+    for _ia6, ib6, kind, _parent, _mu in meta.rows:
+        per_env_iter += 28 + (2, 1, 4)[kind] + (25 if ib6 >= 0 else 0)
+    return per_env_iter * n_iters * b
+
+
+def fat_sweep_bound(inputs, outputs, n_iters):
+    """Least time for one fat-row sweep call: each input read once and each
+    output written once over HBM bandwidth, or its fp32 operations over the
+    fp32 peak."""
+    rows, vel6, lam0, meta, _ = inputs
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (rows, vel6, lam0, meta.meta_i, meta.mu, *outputs))
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = fat_sweep_flops(meta, n_iters, rows.shape[0]) / H100_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def fat_check(inp, cpu, label):
+    """Runs the fat-row sweep (the plain version on the CPU) and its plain
+    version on the same inputs; fails unless they agree within TOL. Returns
+    (outputs, max |diff|, plain version's milliseconds on the host clock)."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+
+    def sync():
+        if not cpu:
+            torch.cuda.synchronize()
+
+    out = sf.sweep_fat_plain(*inp) if cpu else sf.solver_sweep(*inp)
+    sync()
+    ts = time.perf_counter()
+    ref = sf.sweep_fat_plain(*inp)
+    sync()
+    plain_ms = (time.perf_counter() - ts) * 1e3
+    err = max_err(out, ref)
+    print(f"{label}: max |kernel - plain| {err:.3e} (tol {TOL:g}); plain version "
+          f"{plain_ms:.1f} ms (host clock, synchronised)", flush=True)
+    if not err <= TOL:  # NaN fails too
+        fail(f"fat sweep kernel ({label}) disagrees with its plain version: {err}")
+    return out, err, plain_ms
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
+    """Phase 6: the fat-row sweep against its plain version on real spider
+    rows (push pass and velocity sweep of one per-env step) at B=1, and on
+    64 perturbed copies of the velocity sweep's inputs; its time and bound."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+
+    t0 = phase("fat kernel check")
+    env = RobotWalk(params, mt_seed=args.seed, device=dev, per_env_step=True)
+    state, _ = env.reset(1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    action = torch.rand((1, env.action_size), generator=gen, device=dev) * 2 - 1
+    fat_cap.arm()
+    env.step(state, action)
+    fat_cap.armed = False
+    if len(fat_cap.captured) != 2:
+        fail(f"expected 2 fat sweep calls in one spider step, got {len(fat_cap.captured)}")
+    push_in, full_in = fat_cap.captured
+
+    errs, times, outs = {}, {}, {}
+    for label, inp in (("push", push_in), ("full", full_in)):
+        rows, vel6, lam0, meta, n_iters = inp
+        print(f"{label}: rows {tuple(rows.shape)}, vel6 {tuple(vel6.shape)}, iters {n_iters}",
+              flush=True)
+        outs[label], errs[label], plain_ms = fat_check(inp, cpu, label)
+        if label == "full":
+            times["plain_ms"] = plain_ms
+    # the push pass starts from zero velocities; the settled spider presses
+    # into the floor, so its correction velocities cannot all be zero
+    push_max = float(outs["push"][0].abs().max())
+    print(f"push: max |push velocity| {push_max:.3e}", flush=True)
+    if not push_max > 0.0:
+        fail("the push pass left every push velocity at zero")
+
+    # the batched call shape (the JAX per-env solver's vmap rule): 64 copies
+    # of the velocity sweep's inputs, each slightly perturbed
+    rows, vel6, lam0, meta, n_iters = full_in
+    g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+
+    def copies(x, scale):
+        noise = torch.randn((64,) + tuple(x.shape[1:]), generator=g, device=dev)
+        return (x.expand((64,) + tuple(x.shape[1:])) * (1 + scale * noise)).contiguous()
+
+    in64 = [copies(rows, 1e-3), copies(vel6, 1e-3), copies(lam0, 1e-3), meta, n_iters]
+    _, errs["full_b64"], _ = fat_check(in64, cpu, "full, B=64 perturbed copies")
+
+    bound_ms, bound_by, nbytes = fat_sweep_bound(full_in, outs["full"], n_iters)
+    print(f"bound: {nbytes / 1e3:.1f} kB, "
+          f"{fat_sweep_flops(meta, n_iters, rows.shape[0]) / 1e6:.3f} MFLOP -> "
+          f"{bound_ms * 1e3:.4f} us ({bound_by})", flush=True)
+    visits = n_iters * rows.shape[1]
+    if clock_mhz:
+        print(f"estimate, not measured: a chain of {visits} dependent row visits x "
+              f"{CHAIN_OPS * FP32_LATENCY_CYCLES} cycles (assumed fp32 latency, shared-memory "
+              f"round trips left out) at the reported {clock_mhz:.0f} MHz -> "
+              f"{visits * CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e3):.4f} ms",
+              flush=True)
+    else:
+        print("estimate of the row-visit chain: not computed (no SM clock reading)", flush=True)
+    if not cpu:
+        times["ms"] = cuda_ms(lambda: sf.solver_sweep(*full_in), 20)
+        times["push_ms"] = cuda_ms(lambda: sf.solver_sweep(*push_in), 20)
+        print(f"fat sweep kernel ms/call at B=1 (CUDA events): full {times['ms']:.4f} "
+              f"({n_iters * rows.shape[1]} row visits, "
+              f"{times['ms'] * 1e6 / (n_iters * rows.shape[1]):.1f} ns each), push "
+              f"{times['push_ms']:.4f}; plain version full {times['plain_ms']:.1f} [{card}]",
+              flush=True)
+    done("fat kernel check", t0)
+    return {"env": env, "state": state, "action": action, "errs": errs, "times": times,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def perenv_step_check(fat, dev, cpu):
+    """Phase 7: one per-env spider step on the card (kernels) against the
+    same step on the CPU (plain versions)."""
+    import torch
+
+    from evomotion_tpu_torch.physics.perenv import PerEnvStep
+
+    t0 = phase("per-env step check")
+    if not cpu:
+        env, state = fat["env"], fat["state"]
+        tgt = fat["action"] * env._speed
+        on = torch.ones((1, env.model.n_slider), dtype=torch.bool, device=dev)
+        card, _ = env.physics_step(state.physics, tgt, on)
+        host_step = PerEnvStep(env.model, env.physics_step.dt, device="cpu")
+        host, _ = host_step(type(state.physics)(*(x.cpu() for x in state.physics)), tgt.cpu(),
+                            on.cpu())
+        err = max(float((getattr(card, f).cpu() - getattr(host, f)).abs().max())
+                  for f in ("pos", "quat", "lin_vel", "ang_vel"))
+        print(f"max |card - cpu| after one per-env spider step: {err:.3e} (tol {STEP_TOL:g})",
+              flush=True)
+        if not err <= STEP_TOL:
+            fail(f"per-env card step disagrees with the CPU step: {err}")
+    done("per-env step check", t0)
+
+
+def sequential_run(args, dev, cpu, card, cap, fat_cap):
+    """Phase 8: the CLI's sequential ``run`` on each env, random agent. The
+    launch counts and a count of per-env physics steps are set to 0 just
+    before each run and read just after. The first fat-row sweep call of
+    each cartpole run is captured and, after the counts are read, held
+    against its plain version (the spider's calls are held in phase 6)."""
+    import torch
+
+    from evomotion_tpu_torch import cli
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+    from evomotion_tpu_torch.physics import perenv
+
+    t0 = phase("sequential run path")
+    steps = [0]
+    run_once = perenv.PerEnvStep._run
+
+    def counted(self, *a):
+        steps[0] += 1
+        return run_once(self, *a)
+
+    perenv.PerEnvStep._run = counted
+    total, errs = 0, {}
+    try:
+        for env_name, episodes in SEQ_EPISODES.items():
+            argv = ["cli", env_name, "random", "--env_seed", str(args.seed)]
+            if cpu:  # rehearsal: one short episode each
+                episodes = 1
+                if env_name == "robot_walk":
+                    argv += ["--env_parameters", "reset_frames=1",
+                             "initial_remaining_seconds=0.05"]
+            argv += ["run", ".", "--episodes", str(episodes)]
+            buf = io.StringIO()
+            if env_name != "robot_walk":
+                fat_cap.arm(limit=1)
+            sp.KERNEL.launches = sf.KERNEL.launches = 0
+            cap.calls = fat_cap.calls = steps[0] = 0
+            ts = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv, device=dev)
+            if not cpu:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - ts
+            n_phys, launches, calls = steps[0], sf.KERNEL.launches, fat_cap.calls
+            slim = (sp.KERNEL.launches, cap.calls)
+            fat_cap.armed = False
+            lines = [m for m in map(EPISODE_LINE.match, buf.getvalue().splitlines()) if m]
+            for m in lines:
+                print(f"{env_name}: {m.group(0)}", flush=True)
+            per_step = 2 if env_name == "robot_walk" else 1
+            env_steps = sum(int(m.group(2)) for m in lines)
+            print(f"{env_name}: {n_phys} physics steps, fat sweep calls {calls}, kernel "
+                  f"launches {launches}, slim sweep launches/calls {slim}", flush=True)
+            if rc != 0 or len(lines) != episodes:
+                fail(f"{env_name}: run returned {rc} with {len(lines)} episode lines")
+            if not all(math.isfinite(float(m.group(3))) for m in lines):
+                fail(f"{env_name}: non-finite episode return")
+            if calls != per_step * n_phys or (not cpu and launches != calls) or slim != (0, 0):
+                fail(f"{env_name}: expected {per_step} fat sweep launches per physics step "
+                     f"and no slim sweep, got {launches} launches / {calls} calls in "
+                     f"{n_phys} physics steps, slim {slim}")
+            print(f"{env_name}: {wall:.2f} s, {env_steps / wall:.1f} env-steps/s, "
+                  f"{wall / n_phys * 1e3:.2f} ms per physics step (host clock, "
+                  f"{n_phys} physics steps incl. reset settling) [{card}]", flush=True)
+            total += launches
+            if fat_cap.captured:
+                inp, fat_cap.captured = fat_cap.inputs, []
+                _, errs[env_name], _ = fat_check(
+                    inp, cpu, f"{env_name}: first sweep call, rows {tuple(inp[0].shape)}")
+    finally:
+        perenv.PerEnvStep._run = run_once
+        fat_cap.armed = False
+    if set(errs) != {"cartpole", "cartpole3d"}:
+        fail(f"no fat sweep call captured from a cartpole run: {sorted(errs)}")
+    done("sequential run path", t0)
+    return {"launches": total, "errs": errs}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -138,18 +432,21 @@ def main(argv=None):
 
     from evomotion_tpu_torch.envs.robot import RobotWalk, RobotWalkParams
     from evomotion_tpu_torch.kernels import sweep as sp
-    from evomotion_tpu_torch.physics import batched
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+    from evomotion_tpu_torch.physics import batched, perenv
 
     cpu = args.cpu
     dev = torch.device("cpu" if cpu else "cuda")
     n_envs, n_cmp, n_steps = (4, 2, 3) if cpu else (2048, 256, 120)
     params = RobotWalkParams(reset_frames=1) if cpu else RobotWalkParams()
-    cap = SweepCapture(sp, batched)
+    cap = SweepCapture(sp, batched, "sp", "solver_sweep_envlast_slim")
+    fat_cap = SweepCapture(sf, perenv, "sf", "solver_sweep")
 
     # ---- 1. device ----
     t0 = phase("device")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     smi_line = None
+    clock_mhz = None  # top SM clock as nvidia-smi reads it, for the chain estimate
     if not cpu:
         name = torch.cuda.get_device_name(0)
         smi = subprocess.run(
@@ -157,6 +454,15 @@ def main(argv=None):
             capture_output=True, text=True, timeout=60,
         )
         smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unavailable"
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60,
+        )
+        try:
+            clock_mhz = float(clk.stdout.strip().splitlines()[0])
+            print(f"max SM clock {clock_mhz:.0f} MHz", flush=True)
+        except (ValueError, IndexError):
+            print("max SM clock: no reading", flush=True)
         nvcc = subprocess.run(["nvcc", "--version"], capture_output=True, text=True, timeout=60)
         print(f"device {name} x{torch.cuda.device_count()}", flush=True)
         print(f"nvcc {nvcc.stdout.strip().splitlines()[-1] if nvcc.returncode == 0 else '?'}")
@@ -166,12 +472,15 @@ def main(argv=None):
     # ---- 2. build ----
     t0 = phase("build")
     if not cpu:
-        so = sp.KERNEL.build()
-        sp.KERNEL.lib()
-        print(f"built {so.name}", flush=True)
-        for line in sp.KERNEL.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip(), flush=True)
+        kernels = (sp.KERNEL, sf.KERNEL)
+        with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each, together
+            built = list(pool.map(lambda k: k.build(), kernels))
+        for k, so in zip(kernels, built):
+            k.lib()
+            print(f"built {so.name}", flush=True)
+            for line in k.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("ptxas:", line.strip(), flush=True)
     done("build", t0)
 
     # ---- 3. kernel check on real spider rows ----
@@ -184,8 +493,9 @@ def main(argv=None):
     action = torch.rand((n_envs, env.action_size), generator=gen, device=dev) * 2 - 1
     captured = {}
     for label, e in (("bf16", env), ("f32", env32)):
-        cap.armed = True
+        cap.arm()
         e.step(state, action, gen)
+        cap.armed = False
         captured[label] = cap.inputs
     errs, times = {}, {}
     for label, inp in captured.items():
@@ -334,7 +644,12 @@ def main(argv=None):
               f"({100 * times['ms'] / step_ms:.1f}%) [{card}]", flush=True)
     done("main path", t0)
 
-    # ---- 6. kernels line and last line ----
+    del env, env32, state, res, captured
+    fat = fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card)
+    perenv_step_check(fat, dev, cpu)
+    seq = sequential_run(args, dev, cpu, card, cap, fat_cap)
+
+    # ---- 9. kernels line and last line ----
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -351,7 +666,23 @@ def main(argv=None):
         "bound_by": bound_by,
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    fat_kern = {
+        "name": "solver_sweep",
+        "route": "cuda",
+        "source": "evomotion_tpu_torch/kernels/csrc/solver_sweep.cu",
+        "replaces": FAT_REPLACES,
+        "tpu_kernel": FAT_TPU_KERNEL,
+        "launches": seq["launches"],
+        "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values()),
+        "tol": TOL,
+        "ms": fat["times"].get("ms"),
+        "push_ms": fat["times"].get("push_ms"),
+        "plain_ms": fat["times"].get("plain_ms"),
+        "bound_ms": fat["bound_ms"],
+        "bound_by": fat["bound_by"],
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [kern, fat_kern]}), flush=True)
     if cpu:
         print(json.dumps({"ok": True, "device": {"platform": "cpu", "kind": "cpu",
                                                  "count": 0}}), flush=True)

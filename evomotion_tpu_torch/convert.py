@@ -1,11 +1,13 @@
 """Carry models and state across from the JAX package, as numpy arrays.
 
 This is the port's "weights and state carried across": the tests build one
-model and one batch of states with the JAX package, hand them over through
-these functions, and step both packages from the same inputs. Nothing here
+model and states with the JAX package, hand them over through these
+functions, and step both packages from the same inputs. Nothing here
 imports the JAX package; inputs are objects with the right attributes (a JAX
 ``PhysicsModel``, ``PhysicsState`` or ``RobotEnvState``) or mappings of field
-name to array. State batches have the env axis FIRST.
+name to array. Arrays keep their shapes: one world (the JAX per-env
+layout, what ``engine.physics_step`` steps with the per-env step) or a batch
+with the env axis FIRST (a vmapped JAX state).
 """
 
 from __future__ import annotations
@@ -43,13 +45,15 @@ def _tensor(x, device, dtype=None):
 
 
 def physics_state(src, device) -> PhysicsState:
-    """A batch of PhysicsState arrays (env axis first) as port tensors."""
+    """PhysicsState arrays of one world or of a batch (env axis first) as
+    port tensors."""
     return PhysicsState(*(_tensor(_field(src, f), device) for f in PhysicsState._fields))
 
 
 def robot_env_state(src, device) -> RobotEnvState:
-    """A batch of RobotEnvState arrays (env axis first) as port tensors; the
-    JAX state's PRNG ``key`` has no counterpart and is dropped."""
+    """RobotEnvState arrays of one world or of a batch (env axis first) as
+    port tensors; the JAX state's PRNG ``key`` has no counterpart and is
+    dropped."""
     kw = {}
     for f in RobotEnvState._fields:
         v = _field(src, f)

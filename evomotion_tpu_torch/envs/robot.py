@@ -24,7 +24,13 @@ Random draws come from an explicit ``torch.Generator``, or, with ``mt_seed``,
 from the reference's std::mt19937 stream (the reset table of
 ``utils.mt19937``), which the tests use to match the JAX env.
 
-RobotJump is a later slice.
+Two tiers, chosen where the env is built: the batched tier (default) steps
+a batch of worlds with the batched step; ``per_env_step=True`` steps each
+world with the per-env step (fat rows, dense member narrowphase, the
+fat-row sweep kernel twice per physics step), the JAX package's sequential
+tier. :class:`RobotWalkFactory` makes the sequential tier, for the CLI.
+
+RobotJump is a later slice (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ import torch
 from ..device import resolve
 from ..physics import maths
 from ..physics.batched import BatchedStep
-from ..physics.engine import PhysicsState, StepDiagnostics, init_state
+from ..physics.engine import PhysicsState, StepDiagnostics, default_solver, init_state
+from ..physics.perenv import PerEnvStep
 from ..physics.robot_compiler import compile_robot
 from ..serialize import robot as robot_json
-from .base import StepResult
+from .base import StepResult, draws, get_value, where
 
 DT = 1.0 / 60.0
 
@@ -72,13 +79,6 @@ class RobotEnvState(NamedTuple):
     diag_p2p_imp: torch.Tensor  # [B, 2M] (a, b interleaved by muscle)
 
 
-def _where(mask, a, b):
-    """Per-env select over (nested) NamedTuples of tensors; mask [B] bool."""
-    if isinstance(a, tuple):
-        return type(a)(*(_where(mask, x, y) for x, y in zip(a, b)))
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-
-
 @dataclasses.dataclass(frozen=True)
 class RobotWalkParams:
     """Defaults from RobotWalkFactory (env_factory.cpp:74-83)."""
@@ -92,18 +92,22 @@ class RobotWalkParams:
 
 
 class RobotWalk:
-    """Batched robot_walk on the port's physics step.
+    """robot_walk on the port's physics step, batch first.
 
+    ``per_env_step`` selects the physics step: False, the batched step;
+    True, the per-env step (the sequential tier, a batch of one).
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the CPU.
     Replace :attr:`model` (``dataclasses.replace``) to change a model field;
     the physics step is rebuilt for it."""
 
     def __init__(self, params: RobotWalkParams = RobotWalkParams(),
-                 mt_seed: int | None = None, device=None):
+                 mt_seed: int | None = None, device=None, per_env_step: bool = False):
         self.params = params
         self.device = resolve(device)
+        self.per_env_step = per_env_step
         self.spec = robot_json.load(params.skeleton_json_path)
         model, self.meta = compile_robot(self.spec)
+        model = dataclasses.replace(model, solver=default_solver())
         self._axes = torch.eye(3, device=self.device)
         self._spawn = torch.tensor([1.0, 0.25, 2.0], device=self.device)
         self.model = model
@@ -144,7 +148,8 @@ class RobotWalk:
     @model.setter
     def model(self, model):
         self._model = model
-        self.physics_step = BatchedStep(model, DT, self.device)
+        self.physics_step = (PerEnvStep if self.per_env_step else BatchedStep)(
+            model, DT, self.device)
         # build transforms of the skeleton bodies, the reset's "first transform"
         sk = [i for i in range(model.n_bodies) if i != self.meta.floor_body]
         self._skeleton = torch.as_tensor(sk, device=self.device)
@@ -254,12 +259,7 @@ class RobotWalk:
 
     def _draws(self, reset_idx, generator):
         """Three U(0,1) draws per env (yaw, roll, pitch): [B, 3]."""
-        if self._mt_table is not None:
-            return self._mt_table[reset_idx.long() % self._mt_table.shape[0]]
-        if generator is None:
-            raise ValueError("RobotWalk without mt_seed needs a torch.Generator")
-        u = torch.rand((reset_idx.shape[0], 3), generator=generator, device=generator.device)
-        return u.to(self.device)
+        return draws(self._mt_table, reset_idx, 3, generator, self.device)
 
     def _teleported(self, physics: PhysicsState, u) -> PhysicsState:
         """Random tilt around spawn; skeleton bodies to M * first_transform
@@ -371,8 +371,35 @@ class RobotWalk:
             remaining_steps=torch.full_like(run_state.remaining_steps, self.initial_remaining),
             settle_left=torch.full_like(run_state.settle_left, self.settle_total),
         )
-        run_state = _where(run_res.done, done_state, run_state)
+        run_state = where(run_res.done, done_state, run_state)
 
-        out_state = _where(settling, _where(finishing, fin_state, settle_state), run_state)
-        out_res = _where(settling, _where(finishing, fin_res, settle_res), run_res)
+        out_state = where(settling, where(finishing, fin_state, settle_state), run_state)
+        out_res = where(settling, where(finishing, fin_res, settle_res), run_res)
         return out_state, out_res
+
+
+class RobotWalkFactory:
+    """Registry factory (env_factory.cpp:74-83): string parameters with
+    defaults, parsed by the defaults' types."""
+
+    name = "robot_walk"
+
+    def __init__(self, parameters: dict[str, str]):
+        self.parameters = parameters
+
+    def make(self, seed: int = 1234, mt_parity: bool = True, device=None) -> RobotWalk:
+        """The sequential tier: one world stepped by the per-env step.
+        ``mt_parity`` seeds the reference's std::mt19937 reset stream; without
+        it, resets draw from the ``torch.Generator`` passed to reset/step."""
+        g = lambda k, d: get_value(self.parameters, k, d)  # noqa: E731
+        return RobotWalk(
+            RobotWalkParams(
+                skeleton_json_path=g("skeleton_json_path", DEFAULT_SKELETON),
+                initial_remaining_seconds=g("initial_remaining_seconds", 1.0),
+                max_episode_seconds=g("max_episode_seconds", 30.0),
+                target_velocity=g("target_velocity", 0.5),
+                minimal_velocity=g("minimal_velocity", 0.1),
+                reset_frames=g("reset_frames", 30),
+            ),
+            mt_seed=seed if mt_parity else None, device=device, per_env_step=True,
+        )

@@ -23,15 +23,12 @@ from the world inverse inertia ``iinv9 [NB*9, B]`` and static inverse masses.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .build import NvccLibrary
 
 ROW_J = 12
 ROW_S = 4
@@ -42,12 +39,6 @@ KIND_JOINT = 0  # bounds streamed per env (limit/motor rows are state-dependent)
 KIND_NORMAL = 1  # [0, +inf)
 KIND_FRICTION = 2  # +-mu * lam[parent]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep_envlast_slim.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _THREADS = 32  # threads per block in the kernel (one env each)
 
 
@@ -160,7 +151,7 @@ def sweep_plain(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta, n_iters: int):
 # ---------------------------------------------------------------------------
 
 
-class SweepKernel:
+class SweepKernel(NvccLibrary):
     """The nvcc-built sweep library and its launch count.
 
     ``launches`` is a plain integer that :meth:`launch` raises by one per
@@ -168,36 +159,9 @@ class SweepKernel:
     path went through the kernel."""
 
     def __init__(self):
+        super().__init__("sweep_envlast_slim.cu")
         self.launches = 0
-        self.build_log = ""
         self._lib = None
-
-    def library_path(self) -> Path:
-        h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"libsweep_envlast_slim_{h.hexdigest()[:16]}.so"
-
-    def build(self) -> Path:
-        """Compile the source unless a library of this source exists; the
-        library is written under a temporary name and renamed into place, so
-        a build cut off midway leaves no lock and no partial library."""
-        so = self.library_path()
-        log = so.with_suffix(".log")
-        if so.exists():
-            self.build_log = log.read_text() if log.exists() else ""
-            return so
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("sweep kernel: nvcc not found (CUDA toolkit needed)")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_log}")
-        log.write_text(self.build_log)
-        os.replace(tmp, so)
-        return so
 
     def lib(self):
         if self._lib is None:

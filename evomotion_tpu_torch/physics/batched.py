@@ -19,6 +19,7 @@ evo_motion_model/src/environment.cpp:41-43 (Bullet Mt world).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -157,8 +158,8 @@ def _rot_error_vec(quat_fa_w, quat_fb_w):
 
 
 class Statics:
-    """The model's static arrays as tensors on one device, plus the sweep's
-    per-row metadata: everything the step reads that does not change."""
+    """The model's static arrays as tensors on one device, plus the slim
+    sweep's per-row metadata: everything the step reads that does not change."""
 
     def __init__(self, model: PhysicsModel, device):
         dev = torch.device(device)
@@ -237,11 +238,19 @@ class Statics:
         self.j_inv_m_a = f(model.inv_mass[ja])[:, None, None]
         self.j_inv_m_b = f(model.inv_mass[jb])[:, None, None]
 
-        meta = E._solver_meta(model, self.n_pair, self.n_dyn)
-        self.n_full = len(meta.idx6_a)
-        self.sweep_meta = sp.make_sweep_meta(
-            model.inv_mass, meta.idx6_a, meta.idx6_b, meta.parent, meta.mu,
-            meta.kind, meta.skip_b, self.n_full, dev,
+        self._inv_mass = model.inv_mass
+        self._dev = dev
+        self._full_meta = E._solver_meta(model, "full", self.n_pair, self.n_dyn)
+        self.n_full = len(self._full_meta.idx6_a)
+
+    @functools.cached_property
+    def sweep_meta(self):
+        """The slim sweep's per-row metadata on the device, made at its first
+        use: the per-env step shares these statics and never reads it."""
+        meta = self._full_meta
+        return sp.make_sweep_meta(
+            self._inv_mass, meta.idx6_a, meta.idx6_b, meta.parent, meta.mu,
+            meta.kind, meta.skip_b, self.n_full, self._dev,
         )
 
 
@@ -293,9 +302,13 @@ def _finish_dv(idx_a, idx_b, inv_m_a, inv_m_b, j, iinv_world):
 
 
 def build_joint_rows(model: PhysicsModel, st: Statics, pos, quat, motor_target,
-                     motor_enabled, dt, j_dtype=torch.float32):
+                     motor_enabled, dt, j_dtype=torch.float32, bias_cap=E.LIMIT_BIAS_CAP):
     """All joint rows in the canonical order (p2p | hinge | fixed | slider);
-    returns (j [NRJ, 12, B] in j_dtype, scalars [NRJ, 4, B], slider_lin_pos)."""
+    returns (j [NRJ, 12, B] in j_dtype, scalars [NRJ, 4, B], slider_lin_pos).
+
+    ``bias_cap`` caps the limit rows' correction velocity. The JAX env-last
+    step always caps it; the JAX per-env step lifts the cap for strict_bullet
+    models (Bullet leaves it uncapped), so the per-env port passes inf there."""
     b = pos.shape[-1]
     dev = pos.device
     erp_dt = E.ERP / dt
@@ -358,9 +371,7 @@ def build_joint_rows(model: PhysicsModel, st: Statics, pos, quat, motor_target,
         above = angle > hi_l
         j_lim = _ang_rows(ax_a[:, None])[:, 0]
         corr = torch.where(below, lo_l - angle, torch.where(above, hi_l - angle, 0.0))
-        rhs_lim = torch.clamp(
-            E.HINGE_LIMIT_BIAS / dt * corr, -E.LIMIT_BIAS_CAP, E.LIMIT_BIAS_CAP
-        )
+        rhs_lim = torch.clamp(E.HINGE_LIMIT_BIAS / dt * corr, -bias_cap, bias_cap)
         zero = torch.zeros_like(angle)
         lo_b = torch.where(has_limit & below, zero,
                            torch.where(has_limit & above, -_INF, zero))
@@ -427,7 +438,7 @@ def build_joint_rows(model: PhysicsModel, st: Statics, pos, quat, motor_target,
             torch.where(below, lo_l - lin_pos,
                         torch.where(above, hi_l - lin_pos, 0.0)),
         )
-        rhs_lim = torch.clamp(erp_dt * corr, -E.LIMIT_BIAS_CAP, E.LIMIT_BIAS_CAP)
+        rhs_lim = torch.clamp(erp_dt * corr, -bias_cap, bias_cap)
         zero = torch.zeros_like(lin_pos)
         lo_b = torch.where(
             has_lim,
@@ -805,6 +816,20 @@ def _dyn_narrowphase(model: PhysicsModel, st: Statics, pos, quat):
     return _dyn_narrowphase_sel(model, st, pos, quat, sel=sel)
 
 
+def _dyn_warm_match(kd: int, vid, act, dyn_vid, dyn_lambda):
+    """Member contacts' warm-start impulses: this step's feature ids vid
+    [NDC, B] matched against the cached ones within each pair, the cached
+    impulses (x WARMSTART) carried for active persisting contacts: [NDC, 3, B]."""
+    b = vid.shape[-1]
+    old_vid = dyn_vid.reshape(-1, kd, b)
+    old_lam = dyn_lambda.reshape(-1, kd, 3, b)
+    newv = vid.reshape(-1, kd, b)
+    match = (newv[:, :, None] == old_vid[:, None, :]) & (old_vid[:, None, :] >= 0)
+    lam = (match[:, :, :, None].to(torch.float32) * old_lam[:, None]).sum(2)
+    lam = lam.reshape(-1, 3, b)
+    return torch.where(act[:, None] > 0, lam * E.WARMSTART, 0.0)
+
+
 def _member_contact_rows(model: PhysicsModel, st: Statics, pos, quat, lin_vel, ang_vel,
                          iinv_world, dt, warm_cache=None, j_dtype=torch.float32):
     """Member-member contact rows (pairs x member_manifold_k points, pair-major).
@@ -856,14 +881,7 @@ def _member_contact_rows(model: PhysicsModel, st: Statics, pos, quat, lin_vel, a
     if warm_cache is not None:
         # persistent warm start: match feature ids, carry impulses, add
         # their velocity contribution
-        dyn_vid, dyn_lambda = warm_cache  # [NDC, B], [NDC, 3, B]
-        old_vid = dyn_vid.reshape(-1, kd, b)
-        old_lam = dyn_lambda.reshape(-1, kd, 3, b)
-        newv = vid.reshape(-1, kd, b)
-        match = (newv[:, :, None] == old_vid[:, None, :]) & (old_vid[:, None, :] >= 0)
-        lam = (match[:, :, :, None].to(torch.float32) * old_lam[:, None]).sum(2)
-        lam = lam.reshape(ndc, 3, b)
-        warm = torch.where(act[:, None] > 0, lam * E.WARMSTART, 0.0)
+        warm = _dyn_warm_match(kd, vid, act, *warm_cache)
         lam_n0 = warm[:, 0]
         lam_t0 = warm[:, 1:]
         ja_n, jb_n = _cross(rel_a, n), -_cross(rel_b, n)
@@ -908,6 +926,21 @@ def _j_dtype(model: PhysicsModel):
     return torch.float32
 
 
+def _iinv_world(st: Statics, quat):
+    """World inverse inertia R diag(inv_inertia_local) R^T: [NB, 3, 3, B]."""
+    rot = _q2m(quat)  # [NB, 3, 3, B]
+    return (rot[:, :, None] * st.inv_inertia_local[:, None, None, :, None] * rot[:, None]).sum(3)
+
+
+def _warm_start_match(vid_k, active, contact_vid, contact_lambda):
+    """Floor contacts' warm-start impulses: cached impulses (x WARMSTART) of
+    the points whose hull-vertex id persists, zero for inactive points:
+    [NP, K, 3, B]."""
+    match = (vid_k[:, :, None] == contact_vid[:, None, :]) & (contact_vid[:, None, :] >= 0)
+    warm = (match[:, :, :, None].to(torch.float32) * contact_lambda[:, None]).sum(2)
+    return torch.where(active[:, :, None], warm * E.WARMSTART, 0.0)
+
+
 def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel,
                  ang_vel, contact_lambda, contact_vid, joint_lambda, dyn_lambda,
                  dyn_vid, motor_target, motor_enabled):
@@ -928,20 +961,11 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
 
     lin_vel = lin_vel + st.gravity * dt
 
-    rot = _q2m(quat)  # [NB, 3, 3, B]
-    # Iinv_world = R diag(inv_inertia_local) R^T
-    iinv_world = (
-        rot[:, :, None] * st.inv_inertia_local[:, None, None, :, None] * rot[:, None]
-    ).sum(3)  # [NB, 3, 3, B]
+    iinv_world = _iinv_world(st, quat)
 
     # contacts + warm-start match
     pt_k, n_k, gap_k, active, vid_k = detect_contacts(model, st, pos, quat)
-    if n_pair:
-        match = (vid_k[:, :, None] == contact_vid[:, None, :]) & (contact_vid[:, None, :] >= 0)
-        warm = (match[:, :, :, None].to(torch.float32) * contact_lambda[:, None]).sum(2)
-        warm = torch.where(active[:, :, None], warm * E.WARMSTART, 0.0)
-    else:
-        warm = torch.zeros((0, k, 3, b), device=dev)
+    warm = _warm_start_match(vid_k, active, contact_vid, contact_lambda)
 
     joint_j, joint_s, slider_lin_pos = build_joint_rows(
         model, st, pos, quat, motor_target, motor_enabled, dt, j_dtype=j_dtype,
@@ -1049,14 +1073,31 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
         iinv_world.reshape(nb * 9, b).contiguous(), st.sweep_meta, model.n_iterations,
     )
 
+    return _finish_step(model, st, dt, pos, quat, vel_out.reshape(nb, 6, b),
+                        push6.reshape(nb, 6, b), lam_all, slider_lin_pos, gap_k, active,
+                        vid_k, member_x, contact_lambda, contact_vid, dyn_lambda, dyn_vid)
+
+
+def _finish_step(model: PhysicsModel, st: Statics, dt: float, pos, quat, vel6, push6,
+                 lam_all, slider_lin_pos, gap_k, active, vid_k, member_x, contact_lambda,
+                 contact_vid, dyn_lambda, dyn_vid):
+    """Step tail shared by the batched and per-env steps: integrate the
+    transforms (split-impulse push velocities move positions only), read the
+    diagnostics and store the warm-start caches from the canonical-order
+    impulses ``lam_all`` [NR, B]. vel6, push6: [NB, 6, B]."""
+    b = pos.shape[-1]
+    dev = pos.device
+    k = MAX_CONTACTS_PER_PAIR
+    n_pair, n_dyn = st.n_pair, st.n_dyn
+    nb = model.n_bodies
+    nrj = model.n_rows
     lam = lam_all[:nrj]
-    # ---- integrate + diagnostics ----
     # statics stay pinned: 0 * NaN from an exploded solve must not leak into
     # bodies no reset rewrites
-    vel6_out = torch.where(st.dyn > 0, vel_out.reshape(nb, 6, b), 0.0)
+    vel6_out = torch.where(st.dyn > 0, vel6, 0.0)
     lin_out = vel6_out[:, :3]
     ang_out = vel6_out[:, 3:]
-    push66 = torch.where(st.dyn > 0, push6.reshape(nb, 6, b), 0.0)
+    push66 = torch.where(st.dyn > 0, push6, 0.0)
     new_pos = pos + (lin_out + push66[:, :3]) * dt
     new_quat = _qintegrate(quat, ang_out + push66[:, 3:] * E.TURN_ERP, dt)
 
@@ -1124,10 +1165,7 @@ class BatchedStep:
         def last(x):
             return x.movedim(0, -1)
 
-        out = step_envlast(
-            self.model, self.statics, self.dt, *(last(x) for x in state),
-            last(motor_target), last(motor_enabled),
-        )
+        out = self._run(*(last(x) for x in state), last(motor_target), last(motor_enabled))
         pos, quat, lin, ang, cl, vid, jlam, dl, dv, diag = out
 
         def first(x):
@@ -1138,3 +1176,6 @@ class BatchedStep:
                            first(vid), first(jlam), first(dl), first(dv)),
             E.StepDiagnostics(*(first(x) for x in diag)),
         )
+
+    def _run(self, *state_envlast):
+        return step_envlast(self.model, self.statics, self.dt, *state_envlast)

@@ -1,11 +1,13 @@
-"""Physics constants, state and host-side model tables of the batched step.
+"""Physics constants, state, host-side model tables and the step entry point.
 
-Port of the parts of ``evomotion_tpu/physics/engine.py`` that the batched
-(env-last) step needs: the solver constants, :class:`PhysicsState` and
-:class:`StepDiagnostics`, :func:`init_state`, and the numpy tables computed
-once per model (static face planes, per-row bodies, hull edge directions and
-the sweep's per-row metadata). The per-env step of the JAX engine is a later
-slice; the batched step lives in :mod:`.batched`.
+Port of ``evomotion_tpu/physics/engine.py``: the solver constants,
+:class:`PhysicsState` and :class:`StepDiagnostics`, :func:`init_state`, the
+numpy tables computed once per model (static face planes, per-row bodies,
+hull edge directions and the sweeps' per-row metadata), and
+:func:`physics_step`, which steps one world with the per-env step
+(:mod:`.perenv`, the fat-row sweep) and a batch of worlds with the batched
+step (:mod:`.batched`, the slim fused sweep), as the JAX function's
+custom_vmap rule does.
 
 Reference hot path: ``Environment::do_step`` -> ``btDiscreteDynamicsWorldMt::
 stepSimulation`` (evo_motion_model/src/environment.cpp:33-43).
@@ -35,8 +37,8 @@ WARMSTART = 0.85  # m_warmstartingFactor
 
 
 class PhysicsState(NamedTuple):
-    """Dynamic state of a batch of worlds, env axis FIRST (the layout of a
-    vmapped JAX ``PhysicsState``)."""
+    """Dynamic state of one world, or of a batch of worlds with the env axis
+    FIRST (the layout of a vmapped JAX ``PhysicsState``)."""
 
     pos: torch.Tensor  # [B, NB, 3]
     quat: torch.Tensor  # [B, NB, 4] xyzw
@@ -56,6 +58,15 @@ class StepDiagnostics(NamedTuple):
     slider_applied_impulse: torch.Tensor  # [B, NS]
     p2p_applied_impulse: torch.Tensor  # [B, NP2P]
     floor_contact: torch.Tensor  # [B, NB]
+
+
+def default_solver() -> str:
+    """The velocity-solver backend the envs build their models with.
+
+    The port has one: the fused sequential sweep (``"pallas"`` in the JAX
+    package's naming), a CUDA kernel on the card and its plain version on
+    the CPU. The JAX package's colored-phase ``"xla"`` loop is not ported."""
+    return "pallas"
 
 
 def n_manifold_pairs(model: PhysicsModel) -> int:
@@ -249,7 +260,7 @@ def _get_hull_edges(model: PhysicsModel):
 
 
 class SolverMeta(NamedTuple):
-    """Static per-row metadata of the fused sweep (canonical row order)."""
+    """Static per-row metadata of a sweep (canonical row order)."""
 
     idx6_a: np.ndarray  # [NR] int32 body-A offset into vel6 (body * 6)
     idx6_b: np.ndarray  # [NR] int32
@@ -259,18 +270,26 @@ class SolverMeta(NamedTuple):
     skip_b: np.ndarray  # [NR] bool: body B is static
 
 
-def _solver_meta(model: PhysicsModel, n_pair: int, n_dyn: int) -> SolverMeta:
-    """Per-row sweep metadata for the full (velocity + fused push) sweep in
-    the canonical order: joints | floor normals | member normals | floor
-    frictions | member frictions.
+def _solver_meta(model: PhysicsModel, kind: str, n_pair: int, n_dyn: int) -> SolverMeta:
+    """Per-row sweep metadata in the canonical order.
+
+    ``kind="full"``: the velocity sweep over joints | floor normals | member
+    normals | floor frictions | member frictions (the batched step's fused
+    sweep runs its push pass over the same normal rows). ``kind="push"``:
+    the per-env step's split-impulse pass over floor normals | member
+    normals only. ``n_dyn`` counts member contact points (pairs x
+    member_manifold_k), flattened pair-major.
 
     Only the canonical order is ported: ``scheduled`` and ``shuffled:*``
-    visit orders need the kernel's ``groups`` mode, a later slice."""
+    visit orders of the full sweep need the kernels' ``groups`` mode and the
+    row permutation, a later slice (ROADMAP item 0)."""
+    if kind not in ("full", "push"):
+        raise ValueError(f"solver meta kind {kind!r}: 'full' or 'push'")
     order = getattr(model, "row_order", "scheduled")
-    if order != "canonical" and not model.strict_bullet:
+    if kind == "full" and order != "canonical" and not model.strict_bullet:
         raise NotImplementedError(
             f"row_order={order!r}: only 'canonical' is ported (the scheduled "
-            "and shuffled orders need the sweep's groups mode)"
+            "and shuffled orders need the sweeps' groups mode, ROADMAP item 0)"
         )
     k = MAX_CONTACTS_PER_PAIR
     pair_np = model.pair_body
@@ -283,6 +302,17 @@ def _solver_meta(model: PhysicsModel, n_pair: int, n_dyn: int) -> SolverMeta:
         dyn_b = np.repeat(dp[:, 1], kd).astype(np.int32)
     else:
         dyn_a = dyn_b = np.zeros((0,), np.int32)
+
+    if kind == "push":
+        n = n_pair * k + n_dyn
+        return SolverMeta(
+            idx6_a=np.concatenate([np.repeat(body_np, k) * 6, dyn_a * 6]).astype(np.int32),
+            idx6_b=np.concatenate([np.zeros(n_pair * k, np.int32), dyn_b * 6]).astype(np.int32),
+            parent=np.full(n, -1, np.int32),
+            mu=np.zeros(n, np.float32),
+            kind=np.full(n, KIND_NORMAL, np.int32),
+            skip_b=np.concatenate([np.ones(n_pair * k, bool), np.zeros(n_dyn, bool)]),
+        )
 
     nrj = model.n_rows
     ja, jb = _static_row_bodies(model)
@@ -315,7 +345,7 @@ def _solver_meta(model: PhysicsModel, n_pair: int, n_dyn: int) -> SolverMeta:
             np.repeat(fric_dyn, 2).astype(np.float32),
         ]
     )
-    kind = np.concatenate(
+    kind_arr = np.concatenate(
         [
             np.full(nrj, KIND_JOINT, np.int32),
             np.full(n_pair * k + n_dyn, KIND_NORMAL, np.int32),
@@ -330,4 +360,37 @@ def _solver_meta(model: PhysicsModel, n_pair: int, n_dyn: int) -> SolverMeta:
             np.ones(n_pair * 2 * k, bool), np.zeros(n_dyn * 2, bool),
         ]
     )
-    return SolverMeta(idx6_a, idx6_b, parent, mu, kind, skip_b)
+    return SolverMeta(idx6_a, idx6_b, parent, mu, kind_arr, skip_b)
+
+
+# ---------------------------------------------------------------------------
+# the step entry point
+# ---------------------------------------------------------------------------
+
+
+def physics_step(model: PhysicsModel, state: PhysicsState, motor_target, motor_enabled,
+                 dt: float):
+    """Advance one world, or a batch of worlds, by one fixed substep.
+
+    One world (``state.pos`` is ``[NB, 3]``, ``motor_target`` ``[NS]``) runs
+    the per-env step: fat rows and two calls of the fat-row sweep (the
+    split-impulse push pass and the velocity sweep), dense member
+    narrowphase. A batch (a leading env axis on every field) runs the
+    batched step: slim rows and one call of the fused sweep, as the JAX
+    function's custom_vmap rule routes a vmapped call. Both run on the
+    device the state lies on. Each call builds its step object: a caller
+    that steps one model many times builds :class:`.perenv.PerEnvStep` or
+    :class:`.batched.BatchedStep` once and calls it, as the envs do."""
+    from .batched import BatchedStep
+    from .perenv import PerEnvStep
+
+    dev = state.pos.device
+    one_world = state.pos.dim() == 2
+    cls = PerEnvStep if one_world else BatchedStep
+    step = cls(model, dt, device=dev)
+    if not one_world:
+        return step(state, motor_target, motor_enabled)
+    out_state, diag = step(PhysicsState(*(x[None] for x in state)), motor_target[None],
+                           motor_enabled[None])
+    return (PhysicsState(*(x[0] for x in out_state)),
+            StepDiagnostics(*(x[0] for x in diag)))

@@ -1,0 +1,101 @@
+"""The port's CLI and inference driver on the CPU.
+
+``cli.main([... "run", ...], device="cpu")`` runs the sequential tier (one
+world, the per-env physics step, the fat-row sweep's plain version) and
+prints one line per episode; its step counts and returns equal a hand loop
+over the port's env. The parser surface and the strict agent parameters
+follow the JAX package's CLI.
+"""
+
+import re
+
+import pytest
+import torch
+
+from evomotion_tpu_torch import cli
+from evomotion_tpu_torch.envs.cartpole import CartPoleFactory
+
+LINE = re.compile(r"^episode (\d+): (\d+) steps, return (-?[\d.]+)$")
+
+
+def _hand_loop(env, episodes, value):
+    """What ``run`` with a constant agent computes, written out."""
+    out = []
+    for _ in range(episodes):
+        state, res = env.reset(1)
+        total, steps = 0.0, 0
+        while True:
+            state, res = env.step(state, torch.full((1, 1), value))
+            while not bool(res.valid[0]):
+                state, res = env.step(state, torch.zeros((1, 1)))
+            total += float(res.reward[0])
+            steps += 1
+            if bool(res.done[0]):
+                break
+        out.append((steps, round(total, 3)))
+    return out
+
+
+def test_run_cartpole_constant_matches_hand_loop(tmp_path, capsys):
+    rc = cli.main(["cli", "cartpole", "constant", "--agent_parameters", "action_value=0.3",
+                   "run", str(tmp_path), "--episodes", "2"], device="cpu")
+    assert rc == 0
+    lines = [m.groups() for m in map(LINE.match, capsys.readouterr().out.splitlines()) if m]
+    assert [int(i) for i, _, _ in lines] == [0, 1]
+    got = [(int(n), float(r)) for _, n, r in lines]
+    env = CartPoleFactory({}).make(1234, device="cpu")
+    assert got == _hand_loop(env, 2, 0.3)
+    assert all(n > 0 for n, _ in got)
+
+
+def test_run_cartpole3d_random_prints_episodes(tmp_path, capsys):
+    rc = cli.main(["cli", "cartpole3d", "random", "--env_seed", "3", "run", str(tmp_path)],
+                  device="cpu")
+    assert rc == 0
+    lines = [LINE.match(x) for x in capsys.readouterr().out.splitlines()]
+    assert sum(m is not None for m in lines) == 1
+
+
+def test_missing_agent_parameter_raises(tmp_path):
+    with pytest.raises(ValueError, match="action_value"):
+        cli.main(["cli", "cartpole", "constant", "run", str(tmp_path)], device="cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["cli", "robot_jump", "random", "run", "x"],
+    ["cli", "cartpole", "ppo_gae", "run", "x"],
+    ["cli", "cartpole", "soft_actor_critic", "run", "x"],
+    ["cli", "cartpole", "random", "train", "x"],
+    ["cli", "cartpole", "random", "run", "x", "--record", "t.npz"],
+    ["cli", "cartpole", "random", "run", "x", "--live"],
+    ["gui"],
+], ids=["robot_jump", "ppo_gae", "sac", "train", "record", "live", "gui"])
+def test_unported_parts_raise(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(argv, device="cpu")
+
+
+def test_unknown_names_raise():
+    with pytest.raises(ValueError):
+        cli.main(["cli", "no_such_env", "random", "run", "x"], device="cpu")
+    with pytest.raises(ValueError):
+        cli.main(["cli", "cartpole", "no_such_agent", "run", "x"], device="cpu")
+
+
+def test_cli_kv_extraction():
+    agent, env, rest = cli._extract_kv_flags(
+        ["cli", "cartpole", "ppo_gae", "--agent_parameters", "a=1", "b=2",
+         "--env_parameters", "c=3", "train", "/tmp/x", "-e", "4"]
+    )
+    assert agent == {"a": "1", "b": "2"}
+    assert env == {"c": "3"}
+    assert rest == ["cli", "cartpole", "ppo_gae", "train", "/tmp/x", "-e", "4"]
+
+
+def test_env_parameters_reach_the_env(tmp_path, capsys):
+    """--env_parameters are parsed by the defaults' types: a 2-step horizon
+    ends every episode by the win branch on its third step (step_idx > 2)."""
+    cli.main(["cli", "cartpole", "constant", "--agent_parameters", "action_value=0",
+              "--env_parameters", "mas_steps=2", "run", str(tmp_path)], device="cpu")
+    m = LINE.match(capsys.readouterr().out.splitlines()[-1])
+    assert m and int(m.group(2)) == 3

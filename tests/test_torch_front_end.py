@@ -72,7 +72,7 @@ def test_row_schedule_env_flag_sets_row_order(monkeypatch, spiders):
     tm, _ = t_compile(t_robot.load(DEFAULT_SKELETON))
     assert tm.row_order == "scheduled"
     with pytest.raises(NotImplementedError):
-        TE._solver_meta(tm, TE.n_manifold_pairs(tm), TE._n_dyn_contacts(tm))
+        TE._solver_meta(tm, "full", TE.n_manifold_pairs(tm), TE._n_dyn_contacts(tm))
 
 
 def test_host_tables_match(spiders):
@@ -85,12 +85,13 @@ def test_host_tables_match(spiders):
         np.testing.assert_array_equal(a, b)
     n_pair, n_dyn = JE.n_manifold_pairs(jm), JE._n_dyn_contacts(jm)
     assert (n_pair, n_dyn) == (TE.n_manifold_pairs(tm), TE._n_dyn_contacts(tm)) == (17, 480)
-    j_meta = JE._solver_meta(jm, "full", n_pair, n_dyn)
-    t_meta = TE._solver_meta(tm, n_pair, n_dyn)
-    assert j_meta[6] is None and j_meta[7] is None  # canonical: no perm, no groups
-    for a, b in zip(j_meta[:6], t_meta):
-        np.testing.assert_array_equal(a, b)
-    assert len(t_meta.idx6_a) == 1896
+    for kind, n_rows in (("full", 1896), ("push", 548)):
+        j_meta = JE._solver_meta(jm, kind, n_pair, n_dyn)
+        t_meta = TE._solver_meta(tm, kind, n_pair, n_dyn)
+        assert j_meta[6] is None and j_meta[7] is None  # canonical: no perm, no groups
+        for a, b in zip(j_meta[:6], t_meta):
+            np.testing.assert_array_equal(a, b, err_msg=kind)
+        assert len(t_meta.idx6_a) == n_rows
 
 
 def test_mt19937_reset_table_matches():

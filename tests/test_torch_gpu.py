@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from evomotion_tpu_torch.kernels import sweep as tsp
+from evomotion_tpu_torch.kernels import sweep_fat as tsf
 
 NB = 4  # body 0 static (a floor), bodies 1-3 dynamic
 NR_PAD = 32
@@ -61,6 +62,82 @@ def random_rows(seed, B):
     meta = (np.array(ia, np.int32), np.array(ib, np.int32), np.array(parent, np.int32),
             mu.astype(np.float32), np.array(kind, np.int32), np.array(skip))
     return row_j, row_s, vel6, lam0, iinv9, inv_mass, meta
+
+
+def random_fat_rows(seed, B, push=False):
+    """Fat rows [B, NR, 28] + per-env arrays + row metadata for a small random
+    row set in canonical order: 6 joints | 6 normals (3 with a static body B)
+    | 12 frictions | 1 joint; or, with ``push``, the 6 normal rows alone (the
+    split-impulse pass's row set)."""
+    rng = np.random.default_rng(seed)
+    kind, ia, ib, parent, skip = [], [], [], [], []
+
+    def row(k, a, b_, p=-1, s=False):
+        kind.append(k), ia.append(a * 6), ib.append(b_ * 6), parent.append(p), skip.append(s)
+
+    if not push:
+        for r in range(6):
+            row(tsp.KIND_JOINT, 1 + r % 3, 1 + (r + 1) % 3)
+    normals = []
+    for r in range(6):
+        normals.append(len(kind))
+        row(tsp.KIND_NORMAL, 1 + r % 3, 0 if r < 3 else 1 + (r + 2) % 3, s=r < 3)
+    if not push:
+        for n in normals:
+            for _ in range(2):
+                row(tsp.KIND_FRICTION, ia[n] // 6, ib[n] // 6, p=n, s=skip[n])
+        row(tsp.KIND_JOINT, 2, 3)
+    nr = len(kind)
+    mu = np.where(np.array(kind) == tsp.KIND_FRICTION, rng.uniform(0.2, 1.0, nr), 0.0)
+    # rows as a caller builds them: dv = Minv J^T from per-env inverse masses
+    # and inertias, inv_eff = 1 / (J Minv J^T); a static body B has zero J_b
+    j = rng.normal(size=(B, nr, 2, 6)) * 0.5
+    j[:, np.array(skip), 1] = 0.0
+    inv_m = np.array([0.0, 1.0, 0.5, 2.0])
+    q, _ = np.linalg.qr(rng.normal(size=(B, NB, 3, 3)))
+    iinv = np.einsum("bnij,bnj,bnkj->bnik", q, rng.uniform(0.5, 2.0, (B, NB, 3)), q)
+    iinv[:, 0] = 0.0
+    body = np.stack([np.array(ia) // 6, np.array(ib) // 6], 1)  # [NR, 2]
+    dv = np.concatenate([
+        inv_m[body][None, :, :, None] * j[..., :3],
+        np.einsum("brsij,brsj->brsi", iinv[:, body], j[..., 3:]),
+    ], -1)
+    eff = (j * dv).sum((2, 3))
+    rows = np.zeros((B, nr, tsf.ROW_F), np.float32)
+    rows[..., 0:12] = j.reshape(B, nr, 12)
+    rows[..., 12:24] = dv.reshape(B, nr, 12)
+    rows[..., 24] = rng.normal(size=(B, nr))  # rhs
+    lo = -np.abs(rng.normal(size=(B, nr))) * 2
+    hi = np.abs(rng.normal(size=(B, nr))) * 2
+    open_ = rng.random((B, nr)) < 0.3  # some unbounded joint rows
+    lo[open_], hi[open_] = -np.inf, np.inf
+    rows[..., 25], rows[..., 26] = lo, hi
+    rows[..., 27] = 1.0 / eff
+    vel6 = rng.normal(size=(B, NB, 6)).astype(np.float32)
+    lam0 = (np.abs(rng.normal(size=(B, nr))) * 0.1).astype(np.float32)
+    meta = (np.array(ia, np.int32), np.array(ib, np.int32), np.array(parent, np.int32),
+            mu.astype(np.float32), np.array(kind, np.int32), np.array(skip))
+    return rows, vel6, lam0, meta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+def test_fat_kernel_matches_plain_on_card(b):
+    """The CUDA fat-row sweep against its plain version on the same card
+    inputs, at B=1 (the per-env path) and B=64 (the batched call shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    for push in (False, True):
+        rows, vel6, lam0, meta = random_fat_rows(3, b, push=push)
+        m = tsf.make_fat_meta(*meta[:4], meta[4], meta[5], dev)
+        args = [torch.as_tensor(x, device=dev) for x in (rows, vel6, lam0)]
+        before = tsf.KERNEL.launches
+        got = tsf.solver_sweep(*args, m, 3)
+        assert tsf.KERNEL.launches == before + 1
+        ref = tsf.sweep_fat_plain(*args, m, 3)
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu
