@@ -4,42 +4,64 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
-Two paths run, each with its kernel: the batched spider ``robot_walk``
-rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``) and
-the CLI's sequential ``run`` (one world, the per-env physics step, the
-fat-row sweep ``kernels/csrc/solver_sweep.cu`` twice per spider step).
-Phases, each printed with its seconds:
+Four paths run, each with its kernel: the batched spider ``robot_walk``
+rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``), in
+the canonical and in the ``scheduled`` row order (the slim sweep's groups
+mode); the CLI's sequential ``run`` (one world, the per-env physics step,
+the fat-row sweep ``kernels/csrc/solver_sweep.cu`` twice per spider step);
+and the two profilers of ``evomotion_tpu_torch.tools`` (the env-last
+fat-row sweep ``kernels/csrc/solver_sweep_envlast.cu``). Phases, each
+printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions;
-2. build: nvcc builds both kernels, one process each, started together, and
-   prints their registers and spills;
+2. build: nvcc builds the three kernels, one process each, started
+   together, and prints their registers and spills;
 3. kernel check: the slim sweep's inputs are captured at B=2048 from the
    first step after a reset of the spider, for bf16 rows (the shipped
    default) and f32 rows; the kernel runs on all envs, its plain PyTorch
    version on the card on 256 of them, and the outputs must agree within TOL;
 4. step check: one batched physics step of 4 of those envs on the card
    (kernel) against the same step on the CPU (plain version), f32 rows;
-5. main path: ``RobotWalk`` at B=2048, ``reset`` (60 settle steps) and 120
+5. groups check: the same first step under ``row_order="scheduled"``: the
+   slim sweep on the permuted bf16 rows with the schedule's groups against
+   its grouped plain version (256 envs), and one scheduled batched step of
+   4 envs on the card against the CPU, f32 rows;
+6. main path: ``RobotWalk`` at B=2048, ``reset`` (60 settle steps) and 120
    steps of uniform random actions from a seeded ``torch.Generator``; the
    outputs must be finite, the spider on the floor, and the slim sweep
    launched exactly once per physics step (launch counts set to 0 just
    before, read just after);
-6. fat kernel check: the fat-row sweep's inputs (push pass and velocity
+7. scheduled rollout: the same at B=2048 under ``scheduled`` (reset and 60
+   steps), counted the same way; env-steps/s printed beside the canonical
+   run's (a reading, not a claim);
+8. fat kernel check: the fat-row sweep's inputs (push pass and velocity
    sweep) are captured from the first per-env spider step after a seeded
    reset; kernel and plain version on the card must agree within TOL at B=1,
    and on 64 slightly perturbed copies (the batched call shape); the push
    pass must leave some push velocity non-zero;
-7. per-env step check: that per-env spider step on the card (kernel)
+9. per-env step check: that per-env spider step on the card (kernel)
    against the same step on the CPU (plain version);
-8. sequential run path: ``cli.main([... "run" ...])`` on cartpole and
-   cartpole3d (3 episodes each) and the spider robot_walk (1 episode), random
-   agent; episode lines printed, returns finite, the fat-row sweep launched
-   exactly once (cartpoles) or twice (spider) per physics step and the slim
-   sweep never (counts set to 0 just before each env's run, read just after);
-   each cartpole run's first fat-row sweep call is held against its plain
-   version within TOL;
-9. the kernels line and the last line (one JSON object each).
+10. per-env groups check: the same under ``scheduled``: the fat-row sweep's
+    velocity sweep (permuted rows, the schedule's groups) against its grouped
+    plain version at B=1, and the per-env step on the card against the CPU;
+11. sequential run path: ``cli.main([... "run" ...])`` on cartpole and
+    cartpole3d (3 episodes each) and the spider robot_walk (1 episode),
+    random agent; episode lines printed, returns finite, the fat-row sweep
+    launched exactly once (cartpoles) or twice (spider) per physics step and
+    the slim sweep never (counts set to 0 just before each env's run, read
+    just after); each cartpole run's first fat-row sweep call is held
+    against its plain version within TOL;
+12. envlast kernel check: the env-last fat-row sweep at B=2048 with the
+    spider's full-sweep metadata against its plain version on all envs, on
+    ``prof_step``'s inputs (rows N(0, 1) * 0.01, small outputs; timed) and
+    on rows at O(1) scale; each output within TOL and within REL_TOL of its
+    own largest magnitude; its time and bound;
+13. profilers: ``tools.prof_kernel`` (five cases) and ``tools.prof_step``
+    (phase times and launches), each once through its ``main``; the
+    env-last sweep's launches (set to 0 just before each, read just after)
+    must equal the sweep calls each tool reports;
+14. the kernels line and the last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -65,6 +87,11 @@ from concurrent.futures import ThreadPoolExecutor
 # (|vel| up to ~16), while a wrong index, clamp or row order moves the
 # outputs by far more than 1e-3.
 TOL = 1e-3
+# |kernel - plain| bound relative to max |plain| of each output, where the
+# outputs are small (kernel #3 on prof_step's rows): the same rounding, while
+# a dropped body, a wrong slot or a missing inv_eff moves an output by a
+# large share of its own size.
+REL_TOL = 1e-4
 # |card step - CPU step| bound on pos, quat and velocities after one physics
 # step with f32 rows: the same arithmetic, rounded in another order.
 STEP_TOL = 1e-3
@@ -76,6 +103,9 @@ REPLACES = "evomotion_tpu/physics/solver_pallas.py:656"
 TPU_KERNEL = ("solver_sweep_envlast_slim -> _sweep_kernel_envlast_slim "
               "(evomotion_tpu/physics/solver_pallas.py:508, pallas_call :592)")
 FAT_REPLACES = "evomotion_tpu/physics/solver_pallas.py:98"
+ENVLAST_REPLACES = "evomotion_tpu/physics/solver_pallas.py:424"
+ENVLAST_TPU_KERNEL = ("solver_sweep_envlast -> _sweep_kernel_envlast "
+                      "(evomotion_tpu/physics/solver_pallas.py:300, pallas_call :375)")
 FAT_TPU_KERNEL = ("solver_sweep -> _sweep_kernel "
                   "(evomotion_tpu/physics/solver_pallas.py:191, pallas_call :276)")
 # An estimate, not a measurement, printed apart from the kernels line: the
@@ -90,6 +120,7 @@ FAT_TPU_KERNEL = ("solver_sweep -> _sweep_kernel "
 CHAIN_OPS = 12
 FP32_LATENCY_CYCLES = 4
 SEQ_EPISODES = {"cartpole": 3, "cartpole3d": 3, "robot_walk": 1}
+SCHEDULED_STEPS = 60  # env steps of the scheduled rollout after its reset
 EPISODE_LINE = re.compile(r"^episode (\d+): (\d+) steps, return (\S+)$")
 
 
@@ -142,59 +173,49 @@ class SweepCapture:
         self.armed = True
 
 
-def sweep_flops(meta, n_iters, b):
-    """fp32 operations of one sweep call, counted row by row as the kernel
-    does them (csrc/sweep_envlast_slim.cu): body-A dv, eff and J.v (61 with
-    the impulse update), body B (+56), the clamp by kind, and the push pass
-    of normal rows (+29, +25 with body B)."""
-    per_env_iter = 0
-    for _ia6, _ib6, kind, _parent, skip_b, pslot, *_ in meta.rows:
-        ops = 61 + (2, 1, 4)[kind]
-        if not skip_b:
-            ops += 56
-        if pslot >= 0:
-            ops += 29 + (0 if skip_b else 25)
-        per_env_iter += ops
+# fp32 operations per row visit, counted as each kernel does them: (body A
+# with the impulse update, body B's extra); csrc/sweep_envlast_slim.cu
+# recomputes dv and eff (61, +56), the fat-row kernels csrc/solver_sweep.cu
+# and csrc/solver_sweep_envlast.cu read them (J_a.v_a 12, impulse update 3,
+# delta 1, body A's update 12: 28; body B's J.v and update: +25)
+SLIM_OPS = (61, 56)
+FAT_OPS = (28, 25)
+
+
+def sweep_flops(rows, ops, n_iters, b):
+    """fp32 operations of one sweep call: per row ``(kind, has_b, push)``,
+    ``ops`` (see SLIM_OPS), the clamp by kind (joint 2, normal 1, friction
+    4), and the split-impulse pass of a contact normal row (29, +25 with
+    body B)."""
+    base, body_b = ops
+    per_env_iter = sum(base + (2, 1, 4)[kind] + (body_b if has_b else 0)
+                       + ((29 + (25 if has_b else 0)) if push else 0)
+                       for kind, has_b, push in rows)
     return per_env_iter * n_iters * b
 
 
-def sweep_bound(inputs, outputs, n_iters):
-    """Least time for one call: each input read once and each output written
-    once over HBM bandwidth, or the fp32 operations over the fp32 peak."""
-    row_j, row_s, vel6, lam0, iinv9, meta, _ = inputs
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (row_j, row_s, vel6, lam0, iinv9, meta.meta_i, meta.meta_f, *outputs))
+def rows_with_push(meta):
+    """(kind, has_b, push) per row of a slim or env-last sweep meta."""
+    return [(kind, not skip_b, pslot >= 0) for _a, _b, kind, _p, skip_b, pslot, *_ in meta.rows]
+
+
+def fat_rows(meta):
+    """(kind, has_b, push) per row of a fat-row sweep meta."""
+    return [(kind, ib6 >= 0, False) for _a, ib6, kind, _p, _mu in meta.rows]
+
+
+def bound(tensors, flops):
+    """Least time for one call: ``tensors`` (each input read once, each
+    output written once) over HBM bandwidth, or ``flops`` over the fp32
+    peak. Returns (ms, "bytes" or "operations", bytes)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = sweep_flops(meta, n_iters, row_j.shape[-1]) / H100_FP32_FLOPS
+    t_ops = flops / H100_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
 def max_err(a_list, b_list):
     return max(float((a - b).abs().max()) for a, b in zip(a_list, b_list))
-
-
-def fat_sweep_flops(meta, n_iters, b):
-    """fp32 operations of one fat-row sweep call, counted row by row as the
-    kernel does them (csrc/solver_sweep.cu): J_a.v_a (12), the impulse
-    update (3) and delta (1), the velocity update of body A (12), the clamp
-    by kind (joint 2, normal 1, friction 4), and body B's J.v (13) and
-    update (12) unless it is static."""
-    per_env_iter = 0
-    for _ia6, ib6, kind, _parent, _mu in meta.rows:
-        per_env_iter += 28 + (2, 1, 4)[kind] + (25 if ib6 >= 0 else 0)
-    return per_env_iter * n_iters * b
-
-
-def fat_sweep_bound(inputs, outputs, n_iters):
-    """Least time for one fat-row sweep call: each input read once and each
-    output written once over HBM bandwidth, or its fp32 operations over the
-    fp32 peak."""
-    rows, vel6, lam0, meta, _ = inputs
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (rows, vel6, lam0, meta.meta_i, meta.mu, *outputs))
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = fat_sweep_flops(meta, n_iters, rows.shape[0]) / H100_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
 def fat_check(inp, cpu, label):
@@ -239,7 +260,7 @@ def cuda_ms(fn, reps):
 
 
 def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
-    """Phase 6: the fat-row sweep against its plain version on real spider
+    """Phase 8: the fat-row sweep against its plain version on real spider
     rows (push pass and velocity sweep of one per-env step) at B=1, and on
     64 perturbed copies of the velocity sweep's inputs; its time and bound."""
     import torch
@@ -286,9 +307,10 @@ def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
     in64 = [copies(rows, 1e-3), copies(vel6, 1e-3), copies(lam0, 1e-3), meta, n_iters]
     _, errs["full_b64"], _ = fat_check(in64, cpu, "full, B=64 perturbed copies")
 
-    bound_ms, bound_by, nbytes = fat_sweep_bound(full_in, outs["full"], n_iters)
-    print(f"bound: {nbytes / 1e3:.1f} kB, "
-          f"{fat_sweep_flops(meta, n_iters, rows.shape[0]) / 1e6:.3f} MFLOP -> "
+    flops = sweep_flops(fat_rows(meta), FAT_OPS, n_iters, rows.shape[0])
+    bound_ms, bound_by, nbytes = bound((rows, vel6, lam0, meta.meta_i, meta.mu, *outs["full"]),
+                                       flops)
+    print(f"bound: {nbytes / 1e3:.1f} kB, {flops / 1e6:.3f} MFLOP -> "
           f"{bound_ms * 1e3:.4f} us ({bound_by})", flush=True)
     visits = n_iters * rows.shape[1]
     if clock_mhz:
@@ -312,14 +334,14 @@ def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def perenv_step_check(fat, dev, cpu):
-    """Phase 7: one per-env spider step on the card (kernels) against the
-    same step on the CPU (plain versions)."""
+def perenv_step_check(fat, dev, cpu, name="per-env step check"):
+    """One per-env spider step on the card (kernels) against the same step
+    on the CPU (plain versions): phase 9, and phase 10 under scheduled."""
     import torch
 
     from evomotion_tpu_torch.physics.perenv import PerEnvStep
 
-    t0 = phase("per-env step check")
+    t0 = phase(name)
     if not cpu:
         env, state = fat["env"], fat["state"]
         tgt = fat["action"] * env._speed
@@ -330,15 +352,15 @@ def perenv_step_check(fat, dev, cpu):
                             on.cpu())
         err = max(float((getattr(card, f).cpu() - getattr(host, f)).abs().max())
                   for f in ("pos", "quat", "lin_vel", "ang_vel"))
-        print(f"max |card - cpu| after one per-env spider step: {err:.3e} (tol {STEP_TOL:g})",
-              flush=True)
+        print(f"max |card - cpu| after one per-env spider step, row order "
+              f"{env.model.row_order}: {err:.3e} (tol {STEP_TOL:g})", flush=True)
         if not err <= STEP_TOL:
             fail(f"per-env card step disagrees with the CPU step: {err}")
-    done("per-env step check", t0)
+    done(name, t0)
 
 
 def sequential_run(args, dev, cpu, card, cap, fat_cap):
-    """Phase 8: the CLI's sequential ``run`` on each env, random agent. The
+    """Phase 11: the CLI's sequential ``run`` on each env, random agent. The
     launch counts and a count of per-env physics steps are set to 0 just
     before each run and read just after. The first fat-row sweep call of
     each cartpole run is captured and, after the counts are read, held
@@ -415,6 +437,371 @@ def sequential_run(args, dev, cpu, card, cap, fat_cap):
     return {"launches": total, "errs": errs}
 
 
+def slim_check(inp, out, n_cmp, label):
+    """The slim sweep's plain version on the first ``n_cmp`` envs of ``inp``
+    against the kernel's outputs ``out``; fails unless within TOL. Returns
+    the largest difference."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    sub = [x[..., :n_cmp].contiguous() if torch.is_tensor(x) else x for x in inp]
+    ts = time.perf_counter()
+    ref = sp.sweep_plain(*sub)
+    if sub[0].is_cuda:
+        torch.cuda.synchronize()
+    print(f"{label}: plain version on {n_cmp} envs {time.perf_counter() - ts:.2f} s",
+          flush=True)
+    err = [float((a[..., :n_cmp] - b).abs().max()) for a, b in zip(out, ref)]
+    print(f"{label}: max |kernel - plain| vel6 {err[0]:.3e} lam {err[1]:.3e} "
+          f"push {err[2]:.3e} (tol {TOL:g})", flush=True)
+    if not all(x <= TOL for x in err):  # NaN fails too
+        fail(f"{label} sweep kernel disagrees with its plain version: {err}")
+    return max(err)
+
+
+def batched_step_check(env, state, action, n, dev, label):
+    """One batched physics step of ``n`` envs on the card (kernel) against
+    the same step on the CPU (plain version); returns the largest difference."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    cpu_env = RobotWalk(env.params, device="cpu")
+    cpu_env.model = env.model
+    few = type(state.physics)(*(x[:n] for x in state.physics))
+    tgt = action[:n] * env._speed
+    on = torch.ones((n, env.model.n_slider), dtype=torch.bool, device=dev)
+    card, _ = env.physics_step(few, tgt, on)
+    host, _ = cpu_env.physics_step(type(few)(*(x.cpu() for x in few)), tgt.cpu(), on.cpu())
+    err = max(float((getattr(card, f).cpu() - getattr(host, f)).abs().max())
+              for f in ("pos", "quat", "lin_vel", "ang_vel"))
+    print(f"max |card - cpu| after one step, {label}, {n} envs: {err:.3e} "
+          f"(tol {STEP_TOL:g})", flush=True)
+    if not err <= STEP_TOL:
+        fail(f"card step ({label}) disagrees with the CPU step: {err}")
+    return err
+
+
+def groups_check(env, env32, state, action, cap, n_cmp, dev, cpu):
+    """Phase 5: the slim sweep in the scheduled order, with its groups,
+    against its grouped plain version, and one scheduled batched step on the
+    card against the CPU. Returns the sweep's largest difference."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    t0 = phase("groups check")
+    sched = RobotWalk(env.params, device=dev)
+    sched.model = dataclasses.replace(env.model, row_order="scheduled")
+    cap.arm()
+    sched.step(state, action, torch.Generator(device=dev).manual_seed(0))
+    cap.armed = False
+    inp = cap.inputs
+    meta = inp[5]
+    sizes = [z for _, z in meta.groups or ()]
+    print(f"scheduled: rows {tuple(inp[0].shape)} {inp[0].dtype}, {len(sizes)} groups, "
+          f"{sum(z > 1 for z in sizes)} of them with several rows "
+          f"(largest {max(sizes, default=0)})", flush=True)
+    if not sizes or max(sizes) < 2:
+        fail("the scheduled order's meta carries no groups of several rows")
+    out = sp.sweep_plain(*inp) if cpu else sp.solver_sweep_envlast_slim(*inp)
+    if not cpu:
+        torch.cuda.synchronize()
+    err = slim_check(inp, out, n_cmp, "scheduled bf16")
+    if not cpu:
+        s32 = RobotWalk(env.params, device=dev)
+        s32.model = dataclasses.replace(env32.model, row_order="scheduled")
+        batched_step_check(s32, state, action, 4, dev, "scheduled, f32 rows")
+    done("groups check", t0)
+    return err
+
+
+def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label):
+    """A batched path: reset (settle steps) then ``n_steps`` steps of
+    uniform random actions. The slim sweep's counts are set to 0 just before
+    and read just after; it must have launched once per physics step. The
+    outputs must be finite and the spider on the floor. Returns the
+    readings."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sp.KERNEL.launches = 0
+    cap.calls = 0
+    ts = time.perf_counter()
+    state, res = env.reset(n_envs, gen)
+    if not cpu:
+        torch.cuda.synchronize()
+    t_reset = time.perf_counter() - ts
+    root = env.meta.root_body
+    sk = env._skeleton
+    root_y0 = state.physics.pos[:, root, 1]
+    ts = time.perf_counter()
+    rewards, ended, y_lo, y_hi = [], [], [], []
+    for _ in range(n_steps):
+        action = torch.rand((n_envs, env.action_size), generator=gen, device=dev) * 2 - 1
+        state, res = env.step(state, action, gen)
+        rewards.append(res.reward)
+        ended.append(res.done)
+        ys = state.physics.pos[:, sk, 1]
+        y_lo.append(ys.amin())
+        y_hi.append(ys.amax())
+    if not cpu:
+        torch.cuda.synchronize()
+    t_steps = time.perf_counter() - ts
+    launches, calls = sp.KERNEL.launches, cap.calls
+    want = env.settle_total + n_steps
+    print(f"{label}: sweep calls {calls}, kernel launches {launches}, physics steps {want}",
+          flush=True)
+    if calls != want or (not cpu and launches != want):
+        fail(f"{label}: expected {want} sweep kernel launches (one per physics step), "
+             f"got {launches} launches of {calls} calls")
+    rewards = torch.stack(rewards)
+    finite = all(torch.isfinite(x.float()).all() for x in (res.obs, rewards, *state.physics))
+    if not finite:
+        fail(f"{label}: non-finite obs, rewards or physics state")
+    if tuple(res.obs.shape) != (n_envs, env.observation_size):
+        fail(f"{label}: obs shape {tuple(res.obs.shape)}")
+    y_lo, y_hi = float(torch.stack(y_lo).min()), float(torch.stack(y_hi).max())
+    drift = float((state.physics.pos[:, root] - torch.tensor([1.0, 0.25, 2.0], device=dev))
+                  [:, [0, 2]].abs().max())
+    q = torch.quantile(root_y0.float().cpu(), torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0]))
+    print(f"{label}: after reset: root y min/5%/50%/95%/max "
+          + " ".join(f"{x:.3f}" for x in q.tolist()), flush=True)
+    print(f"{label}: over {n_steps} steps: body y in [{y_lo:.3f}, {y_hi:.3f}], root xz drift "
+          f"max {drift:.3f}, episodes ended {int(torch.stack(ended).sum())} of {n_envs} envs, "
+          f"mean reward {float(rewards.mean()):.4f}", flush=True)
+    # The floor is the 2 m thick cube between y=-3 and y=-1. Random muscle
+    # actions press members some way into it (split-impulse correction is
+    # soft) but a body that went through would fall on below y=-1.5 within
+    # the run; nothing the muscles do flings a body 5 m up or 20 m away.
+    if not (y_lo > -1.5 and y_hi < 5.0):
+        fail(f"{label}: spider through the floor or flown off")
+    if drift > 20.0:
+        fail(f"{label}: spider root drifted impossibly far")
+    # spawned at y=0.25 with a random tilt, the spider has come down onto the
+    # floor after the 60 settle steps (1 s) of a full reset; some land propped
+    # on their legs, so the check is on the median and the extremes
+    if not cpu and not (q[0] > -1.0 and q[2] < 0.0 and q[4] < 1.5):
+        fail(f"{label}: spider did not settle on the floor during reset")
+    sps = n_envs * n_steps / t_steps
+    print(f"{label}: reset ({env.settle_total} settle steps) {t_reset:.2f} s; {n_steps} steps "
+          f"{t_steps:.2f} s", flush=True)
+    print(f"{label}: env-steps/s {sps:.1f} at B={n_envs} [{card}]", flush=True)
+    return {"launches": launches, "sps": sps, "step_ms": t_steps / n_steps * 1e3}
+
+
+def perenv_groups_check(args, dev, cpu, params, fat_cap):
+    """Phase 10: the fat-row sweep's velocity sweep in the scheduled order
+    (permuted rows, the schedule's groups) against its grouped plain version
+    at B=1, from the first per-env spider step after a seeded reset; then
+    that per-env step on the card against the CPU."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    t0 = phase("per-env groups check")
+    env = RobotWalk(params, mt_seed=args.seed, device=dev, per_env_step=True)
+    env.model = dataclasses.replace(env.model, row_order="scheduled")
+    state, _ = env.reset(1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    action = torch.rand((1, env.action_size), generator=gen, device=dev) * 2 - 1
+    fat_cap.arm()
+    env.step(state, action)
+    fat_cap.armed = False
+    if len(fat_cap.captured) != 2:
+        fail(f"expected 2 fat sweep calls in one spider step, got {len(fat_cap.captured)}")
+    push_in, full_in = fat_cap.captured
+    if push_in[3].groups is not None or not full_in[3].groups:
+        fail("scheduled per-env step: the velocity sweep must carry groups, the push pass none")
+    errs = [fat_check(inp, cpu, f"scheduled {label}")[1]
+            for label, inp in (("push", push_in), ("full", full_in))]
+    done("per-env groups check", t0)
+    perenv_step_check({"env": env, "state": state, "action": action}, dev, cpu,
+                      "per-env scheduled step check")
+    return max(errs)
+
+
+def o1_envlast_rows(fm, n_bodies, nr_pad, n_envs, dev, seed):
+    """Env-last rows for the spider's full-sweep metadata ``fm`` at O(1)
+    scale, built as a caller builds them: J ~ N(0, 0.25) (J_b zero where
+    body B is static), dv = Minv J^T with a diagonal Minv of per-body,
+    per-env inverse masses in [0.5, 2], inv_eff = 1 / (J Minv J^T),
+    rhs ~ N(0, 1), joint bounds +-2|N(0, 1)|, rhs_push |N(0, 1)| on contact
+    normal rows; velocities N(0, 1), impulses 0.1 |N(0, 1)| (padding rows
+    too). Returns (rows, vel6, lam0)."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    n = len(fm.idx6_a)
+    j = randn(n, 12, n_envs) * 0.5
+    j[torch.as_tensor(fm.skip_b, device=dev), 6:] = 0.0
+    inv_m = 0.5 + 1.5 * torch.rand((n_bodies, 6, n_envs), generator=g, device=dev)
+    ia = torch.as_tensor(fm.idx6_a // 6, dtype=torch.int64, device=dev)
+    ib = torch.as_tensor(fm.idx6_b // 6, dtype=torch.int64, device=dev)
+    dv = torch.cat([inv_m[ia] * j[:, :6], inv_m[ib] * j[:, 6:]], 1)
+    normal = torch.as_tensor(fm.kind == sp.KIND_NORMAL, device=dev)
+    rows = torch.zeros((nr_pad, se.ROW_FP, n_envs), device=dev)
+    rows[:n, 0:12], rows[:n, 12:24] = j, dv
+    rows[:n, 24] = randn(n, n_envs)
+    rows[:n, 25] = -randn(n, n_envs).abs() * 2
+    rows[:n, 26] = randn(n, n_envs).abs() * 2
+    rows[:n, 27] = 1.0 / (j * dv).sum(1)
+    rows[:n, 28] = randn(n, n_envs).abs() * normal[:, None]
+    return rows, randn(n_bodies * 6, n_envs), randn(nr_pad, n_envs).abs() * 0.1
+
+
+def envlast_inputs(seed, n_envs, dev):
+    """Phase 12's inputs at ``prof_step``'s shape: its model (the shipped
+    spider, pallas solver, member contacts on), the env-last meta of its
+    full sweep, and two input sets, ``prof_step``'s own (rows N(0, 1) *
+    0.01, zero velocities and impulses) and rows at O(1) scale
+    (:func:`o1_envlast_rows`). Returns (model, meta, sets)."""
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
+    from evomotion_tpu_torch.physics import engine as E
+
+    m = dataclasses.replace(RobotWalk(device="cpu").model, solver="pallas",
+                            member_contacts=True)
+    fm = E._solver_meta(m, "full", E.n_manifold_pairs(m), E._n_dyn_contacts(m))
+    n_full = len(fm.idx6_a)
+    nr_pad = -(-n_full // 32) * 32
+    meta = se.make_envlast_meta(fm.idx6_a, fm.idx6_b, fm.parent, fm.mu, fm.kind, fm.skip_b,
+                                n_full, dev)
+    rng = np.random.default_rng(seed + 1)
+    rows = torch.as_tensor(
+        rng.standard_normal((nr_pad, se.ROW_FP, n_envs)).astype(np.float32) * 0.01, device=dev)
+    sets = {
+        "prof_step rows": (rows, torch.zeros((m.n_bodies * 6, n_envs), device=dev),
+                           torch.zeros((nr_pad, n_envs), device=dev)),
+        "O(1) rows": o1_envlast_rows(fm, m.n_bodies, nr_pad, n_envs, dev, seed + 4),
+    }
+    return m, meta, sets
+
+
+def envlast_errors(out, ref):
+    """Per output of the env-last sweep: (name, max |kernel - plain|,
+    max |plain|, whether it is within TOL and within REL_TOL x max |plain|)."""
+    res = []
+    for name, a, b in zip(("vel6", "lam", "push"), out, ref):
+        err, mag = float((a - b).abs().max()), float(b.abs().max())
+        res.append((name, err, mag, err <= TOL and err <= REL_TOL * mag))  # NaN fails
+    return res
+
+
+def envlast_kernel_check(args, dev, cpu, n_envs, card):
+    """Phase 12: the env-last fat-row sweep against its plain version on
+    all envs of both input sets of :func:`envlast_inputs` (the first also
+    timed, CUDA events); each output must pass :func:`envlast_errors`,
+    padding rows keep their impulses and the push pass moves bodies."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
+
+    t0 = phase("envlast kernel check")
+    m, meta, sets = envlast_inputs(args.seed, n_envs, dev)
+    n_iters = m.n_iterations
+    n_full = meta.meta_i.shape[0]
+    rows = sets["prof_step rows"][0]
+    print(f"rows {tuple(rows.shape)} ({n_full} visited), vel6 ({m.n_bodies * 6}, {n_envs}), "
+          f"iters {n_iters}", flush=True)
+    times, errs, rel = {}, [], []
+    for label, inp in sets.items():
+        if cpu:
+            out = ref = se.sweep_envlast_plain(*inp, meta, n_iters)
+        else:
+            out = se.solver_sweep_envlast(*inp, meta, n_iters)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = se.sweep_envlast_plain(*inp, meta, n_iters)
+            end.record()
+            torch.cuda.synchronize()
+            if not times:
+                times["plain_ms"] = start.elapsed_time(end)
+                times["ms"] = cuda_ms(lambda: se.solver_sweep_envlast(*inp, meta, n_iters), 10)
+        for name, err, mag, ok in envlast_errors(out, ref):
+            print(f"{label}: {name}: max |kernel - plain| {err:.3e}, max |plain| {mag:.3e} "
+                  f"(tol {TOL:g} and {REL_TOL:g} x max |plain|)", flush=True)
+            if not ok:
+                fail(f"envlast sweep kernel disagrees with its plain version on {label}, "
+                     f"{name}: {err} against max |plain| {mag}")
+            errs.append(err)
+            rel.append(err / mag if mag else 0.0)
+        if not torch.equal(out[1][n_full:], inp[2][n_full:]) or not float(out[2].abs().max()) > 0:
+            fail(f"envlast sweep ({label}): padding rows changed or the push pass did nothing")
+    inp = sets["prof_step rows"]
+    out = (inp[1], inp[2], inp[1])  # the outputs' shapes, for the bytes written
+    flops = sweep_flops(rows_with_push(meta), FAT_OPS, n_iters, n_envs)
+    bound_ms, bound_by, nbytes = bound((*inp, meta.meta_i, meta.mu, *out), flops)
+    print(f"bound: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    if not cpu:
+        print(f"envlast kernel {times['ms']:.3f} ms/call, plain version {times['plain_ms']:.1f} "
+              f"ms/call, at B={n_envs} on prof_step's rows (CUDA events) [{card}]", flush=True)
+    done("envlast kernel check", t0)
+    return {"err": max(errs), "rel_err": max(rel), "times": times, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def run_tool(module, argv, label):
+    """Runs a tool's ``main(argv)``, prints its output, returns its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines[:-1]:
+        print(f"{label}: {line}", flush=True)
+    if rc != 0 or not lines:
+        fail(f"{label} returned {rc}")
+    return json.loads(lines[-1])
+
+
+def profilers(dev, cpu):
+    """Phase 13: both profilers once; the env-last sweep's launch count is
+    set to 0 just before each and read just after, and must equal the sweep
+    calls the tool reports."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
+    from evomotion_tpu_torch.tools import prof_kernel, prof_step
+
+    t0 = phase("profilers")
+    tiny = ["--device", "cpu"] if cpu else []
+    runs = (
+        (prof_kernel, "prof_kernel", tiny + (["--envs", "4", "--sizes", "16,32",
+                                               "--size", "32"] if cpu else [])),
+        (prof_step, "prof_step", tiny + (["--envs", "2", "--reps", "1", "--reset-frames",
+                                          "1", "--iterations", "1"] if cpu else [])),
+    )
+    out = {}
+    for module, label, argv in runs:
+        se.KERNEL.launches = 0
+        res = run_tool(module, argv, label)
+        if not cpu:
+            torch.cuda.synchronize()
+        launches, calls = se.KERNEL.launches, res["sweep_calls"]
+        print(f"{label}: envlast sweep calls {calls}, kernel launches {launches}", flush=True)
+        if calls < 1 or (not cpu and launches != calls):
+            fail(f"{label}: expected one envlast sweep launch per call, got {launches} "
+                 f"launches of {calls} calls")
+        out[label] = {"res": res, "launches": launches}
+    done("profilers", t0)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -432,6 +819,7 @@ def main(argv=None):
 
     from evomotion_tpu_torch.envs.robot import RobotWalk, RobotWalkParams
     from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
     from evomotion_tpu_torch.kernels import sweep_fat as sf
     from evomotion_tpu_torch.physics import batched, perenv
 
@@ -467,12 +855,14 @@ def main(argv=None):
         print(f"device {name} x{torch.cuda.device_count()}", flush=True)
         print(f"nvcc {nvcc.stdout.strip().splitlines()[-1] if nvcc.returncode == 0 else '?'}")
         print(smi_line, flush=True)
+    card = (f"{torch.cuda.get_device_name(0)}, power limit {smi_line.split(',')[-1].strip()}"
+            if not cpu else "cpu rehearsal")
     done("device", t0)
 
     # ---- 2. build ----
     t0 = phase("build")
     if not cpu:
-        kernels = (sp.KERNEL, sf.KERNEL)
+        kernels = (sp.KERNEL, sf.KERNEL, se.KERNEL)
         with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each, together
             built = list(pool.map(lambda k: k.build(), kernels))
         for k, so in zip(kernels, built):
@@ -507,23 +897,12 @@ def main(argv=None):
         else:
             out = sp.solver_sweep_envlast_slim(*inp)
             torch.cuda.synchronize()
-        sub = [x[..., :n_cmp].contiguous() if torch.is_tensor(x) else x for x in inp]
-        ts = time.perf_counter()
-        ref = sp.sweep_plain(*sub)
-        if not cpu:
-            torch.cuda.synchronize()
-        print(f"{label}: plain version on {n_cmp} envs {time.perf_counter() - ts:.2f} s",
-              flush=True)
-        err = [float((a[..., :n_cmp] - b).abs().max()) for a, b in zip(out, ref)]
-        print(f"{label}: max |kernel - plain| vel6 {err[0]:.3e} lam {err[1]:.3e} "
-              f"push {err[2]:.3e} (tol {TOL:g})", flush=True)
-        if not all(x <= TOL for x in err):  # NaN fails too
-            fail(f"{label} sweep kernel disagrees with its plain version: {err}")
-        errs[label] = max(err)
+        errs[label] = slim_check(inp, out, n_cmp, label)
         if label == "bf16":
-            bound_ms, bound_by, nbytes = sweep_bound(inp, out, n_iters)
-            print(f"bound: {nbytes / 1e6:.1f} MB, "
-                  f"{sweep_flops(meta, n_iters, row_j.shape[-1]) / 1e9:.2f} GFLOP -> "
+            flops = sweep_flops(rows_with_push(meta), SLIM_OPS, n_iters, row_j.shape[-1])
+            bound_ms, bound_by, nbytes = bound(
+                (row_j, row_s, vel6, lam0, iinv9, meta.meta_i, meta.meta_f, *out), flops)
+            print(f"bound: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> "
                   f"{bound_ms:.4f} ms ({bound_by})", flush=True)
             if not cpu:
                 # kernel time: CUDA events around repeated launches (warm)
@@ -554,102 +933,45 @@ def main(argv=None):
     # ---- 4. one step on the card against the same step on the CPU ----
     t0 = phase("step check")
     if not cpu:
-        cpu_env = RobotWalk(params, device="cpu")
-        cpu_env.model = env32.model
-        few = type(state.physics)(*(x[:4] for x in state.physics))
-        tgt = action[:4] * env._speed
-        on = torch.ones((4, env.model.n_slider), dtype=torch.bool, device=dev)
-        card, _ = env32.physics_step(few, tgt, on)
-        host, _ = cpu_env.physics_step(
-            type(few)(*(x.cpu() for x in few)), tgt.cpu(), on.cpu())
-        step_err = max(float((getattr(card, f).cpu() - getattr(host, f)).abs().max())
-                       for f in ("pos", "quat", "lin_vel", "ang_vel"))
-        print(f"max |card - cpu| after one step, f32 rows, 4 envs: {step_err:.3e} "
-              f"(tol {STEP_TOL:g})", flush=True)
-        if not step_err <= STEP_TOL:
-            fail(f"card step disagrees with the CPU step: {step_err}")
+        batched_step_check(env32, state, action, 4, dev, "f32 rows")
     done("step check", t0)
 
-    # ---- 5. main path ----
+    # ---- 5. the scheduled order: groups of the slim sweep ----
+    sched_err = groups_check(env, env32, state, action, cap, n_cmp, dev, cpu)
+
+    # ---- 6. main path ----
     t0 = phase("main path")
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    sp.KERNEL.launches = 0
-    cap.calls = 0
-    ts = time.perf_counter()
-    state, res = env.reset(n_envs, gen)
+    main_run = batched_rollout(env, n_envs, n_steps, args.seed + 1, cap, dev, cpu, card,
+                               "canonical")
     if not cpu:
-        torch.cuda.synchronize()
-    t_reset = time.perf_counter() - ts
-    root = env.meta.root_body
-    sk = env._skeleton
-    root_y0 = state.physics.pos[:, root, 1]
-    ts = time.perf_counter()
-    rewards, ended, y_lo, y_hi = [], [], [], []
-    for _ in range(n_steps):
-        action = torch.rand((n_envs, env.action_size), generator=gen, device=dev) * 2 - 1
-        state, res = env.step(state, action, gen)
-        rewards.append(res.reward)
-        ended.append(res.done)
-        ys = state.physics.pos[:, sk, 1]
-        y_lo.append(ys.amin())
-        y_hi.append(ys.amax())
-    if not cpu:
-        torch.cuda.synchronize()
-    t_steps = time.perf_counter() - ts
-    launches, calls = sp.KERNEL.launches, cap.calls
-    want = env.settle_total + n_steps
-    print(f"sweep calls {calls}, kernel launches {launches}, physics steps {want}", flush=True)
-    if calls != want or (not cpu and launches != want):
-        fail(f"expected {want} sweep kernel launches (one per physics step), "
-             f"got {launches} launches of {calls} calls")
-    rewards = torch.stack(rewards)
-    finite = all(torch.isfinite(x.float()).all() for x in (res.obs, rewards, *state.physics))
-    if not finite:
-        fail("non-finite obs, rewards or physics state")
-    if tuple(res.obs.shape) != (n_envs, env.observation_size):
-        fail(f"obs shape {tuple(res.obs.shape)}")
-    y_lo, y_hi = float(torch.stack(y_lo).min()), float(torch.stack(y_hi).max())
-    drift = float((state.physics.pos[:, root] - torch.tensor([1.0, 0.25, 2.0], device=dev))
-                  [:, [0, 2]].abs().max())
-    q = torch.quantile(root_y0.float().cpu(), torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0]))
-    print("after reset: root y min/5%/50%/95%/max "
-          + " ".join(f"{x:.3f}" for x in q.tolist()), flush=True)
-    print(f"over {n_steps} steps: body y in [{y_lo:.3f}, {y_hi:.3f}], root xz drift max "
-          f"{drift:.3f}, episodes ended {int(torch.stack(ended).sum())} of {n_envs} envs, "
-          f"mean reward {float(rewards.mean()):.4f}", flush=True)
-    # The floor is the 2 m thick cube between y=-3 and y=-1. Random muscle
-    # actions press members some way into it (split-impulse correction is
-    # soft) but a body that went through would fall on below y=-1.5 within
-    # the run; nothing the muscles do flings a body 5 m up or 20 m away.
-    if not (y_lo > -1.5 and y_hi < 5.0):
-        fail("spider through the floor or flown off")
-    if drift > 20.0:
-        fail("spider root drifted impossibly far")
-    # spawned at y=0.25 with a random tilt, the spider has come down onto the
-    # floor after the 60 settle steps (1 s) of a full reset; some land propped
-    # on their legs, so the check is on the median and the extremes
-    if not cpu and not (q[0] > -1.0 and q[2] < 0.0 and q[4] < 1.5):
-        fail("spider did not settle on the floor during reset")
-    sps = n_envs * n_steps / t_steps
-    card = (f"{torch.cuda.get_device_name(0)}, power limit {smi_line.split(',')[-1].strip()}"
-            if not cpu else "cpu rehearsal")
-    print(f"reset ({env.settle_total} settle steps) {t_reset:.2f} s; {n_steps} steps "
-          f"{t_steps:.2f} s", flush=True)
-    print(f"env-steps/s {sps:.1f} at B={n_envs} [{card}]", flush=True)
-    if not cpu:
-        step_ms = t_steps / n_steps * 1e3
+        step_ms = main_run["step_ms"]
         print(f"sweep ms/call {times['ms']:.3f} (CUDA events, B={n_envs}) [{card}]", flush=True)
         print(f"env step {step_ms:.3f} ms (host clock, synchronised at the end), of which "
               f"the sweep kernel alone takes {times['ms']:.3f} ms "
               f"({100 * times['ms'] / step_ms:.1f}%) [{card}]", flush=True)
     done("main path", t0)
 
-    del env, env32, state, res, captured
+    # ---- 7. scheduled rollout ----
+    t0 = phase("scheduled rollout")
+    sched = RobotWalk(params, device=dev)
+    sched.model = dataclasses.replace(env.model, row_order="scheduled")
+    n_sched = n_steps if cpu else SCHEDULED_STEPS
+    sched_run = batched_rollout(sched, n_envs, n_sched, args.seed + 1, cap, dev, cpu, card,
+                                "scheduled")
+    print(f"env-steps/s at B={n_envs}: canonical {main_run['sps']:.1f} ({n_steps} steps), "
+          f"scheduled {sched_run['sps']:.1f} ({n_sched} steps); a reading, not a claim "
+          f"[{card}]", flush=True)
+    done("scheduled rollout", t0)
+
+    del env, env32, state, captured, sched
     fat = fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card)
     perenv_step_check(fat, dev, cpu)
+    sched_fat_err = perenv_groups_check(args, dev, cpu, params, fat_cap)
     seq = sequential_run(args, dev, cpu, card, cap, fat_cap)
+    envlast = envlast_kernel_check(args, dev, cpu, n_envs, card)
+    prof = profilers(dev, cpu)
 
-    # ---- 9. kernels line and last line ----
+    # ---- 14. kernels line and last line ----
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -657,8 +979,11 @@ def main(argv=None):
         "source": "evomotion_tpu_torch/kernels/csrc/sweep_envlast_slim.cu",
         "replaces": REPLACES,
         "tpu_kernel": TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
+        "launches": main_run["launches"] + sched_run["launches"],
+        "launches_by_path": {"batched canonical": main_run["launches"],
+                             "batched scheduled": sched_run["launches"]},
+        "max_abs_err": max(*errs.values(), sched_err),
+        "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),
         "plain_ms": times.get("plain_ms"),
@@ -673,7 +998,9 @@ def main(argv=None):
         "replaces": FAT_REPLACES,
         "tpu_kernel": FAT_TPU_KERNEL,
         "launches": seq["launches"],
-        "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values()),
+        "launches_by_path": {"sequential run": seq["launches"]},
+        "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err),
+        "groups_checked": True,
         "tol": TOL,
         "ms": fat["times"].get("ms"),
         "push_ms": fat["times"].get("push_ms"),
@@ -682,7 +1009,25 @@ def main(argv=None):
         "bound_by": fat["bound_by"],
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kern, fat_kern]}), flush=True)
+    envlast_kern = {
+        "name": "solver_sweep_envlast",
+        "route": "cuda",
+        "source": "evomotion_tpu_torch/kernels/csrc/solver_sweep_envlast.cu",
+        "replaces": ENVLAST_REPLACES,
+        "tpu_kernel": ENVLAST_TPU_KERNEL,
+        "launches": sum(p["launches"] for p in prof.values()),
+        "launches_by_path": {k: p["launches"] for k, p in prof.items()},
+        "max_abs_err": envlast["err"],
+        "max_rel_err": envlast["rel_err"],
+        "tol": TOL,
+        "rel_tol": REL_TOL,
+        "ms": envlast["times"].get("ms"),
+        "plain_ms": envlast["times"].get("plain_ms"),
+        "bound_ms": envlast["bound_ms"],
+        "bound_by": envlast["bound_by"],
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [kern, fat_kern, envlast_kern]}), flush=True)
     if cpu:
         print(json.dumps({"ok": True, "device": {"platform": "cpu", "kind": "cpu",
                                                  "count": 0}}), flush=True)

@@ -14,6 +14,12 @@
 // The per-env physics step calls it twice per step: once over the contact
 // normal rows with the split-impulse rhs (push pass), once over all rows.
 //
+// Groups (the `scheduled` row order, TPU kernel :133-181): as in
+// sweep_envlast_slim.cu, `make_fat_meta` (kernels/sweep_fat.py) accepts only
+// groups whose rows write pairwise disjoint bodies and whose friction rows'
+// parents lie in earlier groups, so visiting the permuted rows one at a time
+// here computes what the TPU kernel's load-then-store groups compute.
+//
 // Layout: rows [B, NR, 28], vel [B, NB * 6], lam [B, NR], all f32, batch
 // FIRST as the TPU kernel's wrapper takes them. One thread walks one env: a
 // row is 112 contiguous bytes it reads as seven float4 loads. Its body

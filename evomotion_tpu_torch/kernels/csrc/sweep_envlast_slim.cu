@@ -13,6 +13,16 @@
 // Contact normal rows also advance the split-impulse push accumulator
 // (rhs_push, clamp >= 0) into the push velocities in the same visit.
 //
+// Groups (the `scheduled` row order, TPU kernel :718-805): the TPU kernel
+// loads every row of a group before it stores any. The caller gathers the
+// rows into visit order, and `make_sweep_meta` (kernels/sweep.py) accepts
+// only groups whose rows write pairwise disjoint bodies and whose friction
+// rows' parents lie in earlier groups. Under that check every load of the
+// group's load phase reads what a one-at-a-time visit would read, so this
+// kernel visits the permuted rows one at a time and computes what the TPU
+// kernel computes. A body that overlaps a group's loads is left for a PR
+// that makes the kernel fast.
+//
 // Layout: every array is env-LAST ([rows, cols, B]), so thread `env` reading
 // element (r, c) touches address (r * cols + c) * B + env and neighbouring
 // threads read neighbouring addresses (coalesced). One thread walks one env.

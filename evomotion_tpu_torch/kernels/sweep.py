@@ -2,8 +2,17 @@
 
 Port of ``solver_sweep_envlast_slim`` (evomotion_tpu/physics/solver_pallas.py:508,
 kernel ``_sweep_kernel_envlast_slim``). ``n_iters`` passes over the constraint
-rows, visited strictly in canonical order within each env, envs independent;
-see ``csrc/sweep_envlast_slim.cu`` for the per-row arithmetic.
+rows, visited in the order the caller laid them out, envs independent; see
+``csrc/sweep_envlast_slim.cu`` for the per-row arithmetic.
+
+Groups (the ``scheduled`` row order): :func:`make_sweep_meta` takes the
+TPU kernel's ``groups``, ``((start, size), ...)`` runs of rows whose
+velocity loads all happen before any of their stores, and checks the
+invariant that makes that the same as visiting the rows one at a time (see
+:func:`check_groups`), against the chunk the groups were built for. The
+plain version does the group semantics literally, load phase then store
+phase (:func:`run_groups`); the CUDA kernel visits the rows one at a time,
+which the check makes equal.
 
 :func:`solver_sweep_envlast_slim` dispatches on where its tensors lie:
 
@@ -42,6 +51,44 @@ KIND_FRICTION = 2  # +-mu * lam[parent]
 _THREADS = 32  # threads per block in the kernel (one env each)
 
 
+def check_groups(groups, idx6_a, idx6_b, parent, skip_b, n_rows: int, chunk: int):
+    """Raise ValueError unless ``groups`` (``((start, size), ...)``) keep
+    the invariant under which a group's load-then-store phases compute what
+    visiting its rows one at a time computes:
+
+    - the groups tile ``[0, n_rows)`` in order;
+    - no group crosses a boundary of ``chunk`` rows;
+    - within a group, the bodies the rows write (body A, and body B unless
+      ``skip_b``) are pairwise disjoint between rows;
+    - every friction row's parent lies in an earlier group."""
+    idx6_a, idx6_b = np.asarray(idx6_a)[:n_rows], np.asarray(idx6_b)[:n_rows]
+    skip_b, parent = np.asarray(skip_b, bool)[:n_rows], np.asarray(parent)[:n_rows]
+    group_of = np.empty(n_rows, np.int64)
+    end = 0
+    for g, (start, size) in enumerate(groups):
+        if start != end or size < 1 or start + size > n_rows:
+            raise ValueError(f"groups must tile [0, {n_rows}) in order: group {g} is "
+                             f"({start}, {size}) after row {end}")
+        if start // chunk != (start + size - 1) // chunk:
+            raise ValueError(f"group {g} ({start}, {size}) crosses a {chunk}-row chunk")
+        group_of[start:start + size] = g
+        end = start + size
+        bodies = set()
+        for r in range(start, start + size):
+            mine = {int(idx6_a[r]) // 6} | (set() if skip_b[r] else {int(idx6_b[r]) // 6})
+            if bodies & mine:
+                raise ValueError(f"group {g} ({start}, {size}): row {r} shares body "
+                                 f"{sorted(bodies & mine)} with an earlier row of the group")
+            bodies |= mine
+    if end != n_rows:
+        raise ValueError(f"groups must tile [0, {n_rows}) in order: they end at {end}")
+    fr = np.nonzero(parent >= 0)[0]
+    late = fr[group_of[parent[fr]] >= group_of[fr]]
+    if len(late):
+        raise ValueError(f"friction row {int(late[0])}: its parent {int(parent[late[0]])} "
+                         "is not in an earlier group")
+
+
 class SweepMeta(NamedTuple):
     """Static per-row sweep metadata in the forms both versions take."""
 
@@ -49,21 +96,46 @@ class SweepMeta(NamedTuple):
     meta_f: torch.Tensor  # [NR, 3] f32: mu, inv_mass_a, inv_mass_b
     rows: tuple  # per-row Python tuples of the same fields (plain version)
     n_push: int  # push-impulse slots (contact normal rows), at least 1
+    groups: tuple | None = None  # checked ((start, size), ...); None: one row at a time
 
 
-def make_sweep_meta(inv_mass, idx6_a, idx6_b, parent, mu, kind, skip_b,
-                    n_rows: int, device) -> SweepMeta:
-    """Per-row tables for the first ``n_rows`` rows, on ``device`` once per model."""
-    inv_mass = np.asarray(inv_mass, np.float32)
-    idx6_a = np.asarray(idx6_a[:n_rows], np.int64)
-    idx6_b = np.asarray(idx6_b[:n_rows], np.int64)
+def row_table(idx6_a, idx6_b, parent, kind, skip_b, n_rows: int) -> np.ndarray:
+    """[n_rows, 6] int32 per-row table ia6, ib6, kind, parent, skip_b,
+    push_slot; a contact normal row's push slot counts the normal rows
+    before it (the fused split-impulse pass's compact accumulator)."""
     kind = np.asarray(kind[:n_rows], np.int64)
     normal = kind == KIND_NORMAL
     push_slot = np.where(normal, np.cumsum(normal) - 1, -1)
-    mi = np.stack(
-        [idx6_a, idx6_b, kind, np.asarray(parent[:n_rows]),
-         np.asarray(skip_b[:n_rows]).astype(np.int64), push_slot], 1
+    return np.stack(
+        [np.asarray(idx6_a[:n_rows], np.int64), np.asarray(idx6_b[:n_rows], np.int64), kind,
+         np.asarray(parent[:n_rows]), np.asarray(skip_b[:n_rows]).astype(np.int64), push_slot],
+        1,
     ).astype(np.int32).reshape(n_rows, 6)
+
+
+def checked_groups(groups, chunk, idx6_a, idx6_b, parent, skip_b, n_rows: int):
+    """``groups`` as a tuple of int pairs once :func:`check_groups` has
+    passed them against ``chunk``, the chunk they were built for; None
+    stays None."""
+    if groups is None:
+        return None
+    if chunk is None:
+        raise ValueError("groups need the chunk they were built for")
+    groups = tuple((int(s), int(z)) for s, z in groups)
+    check_groups(groups, idx6_a, idx6_b, parent, skip_b, n_rows, chunk)
+    return groups
+
+
+def make_sweep_meta(inv_mass, idx6_a, idx6_b, parent, mu, kind, skip_b,
+                    n_rows: int, device, groups=None, chunk=None) -> SweepMeta:
+    """Per-row tables for the first ``n_rows`` rows, on ``device`` once per
+    model. ``groups`` (the scheduled order's) are checked here, once, by
+    :func:`check_groups` against ``chunk``, the chunk they were built for."""
+    groups = checked_groups(groups, chunk, idx6_a, idx6_b, parent, skip_b, n_rows)
+    inv_mass = np.asarray(inv_mass, np.float32)
+    mi = row_table(idx6_a, idx6_b, parent, kind, skip_b, n_rows)
+    idx6_a, idx6_b = mi[:, 0].astype(np.int64), mi[:, 1].astype(np.int64)
+    normal = mi[:, 2] == KIND_NORMAL
     mf = np.stack(
         [np.asarray(mu[:n_rows], np.float32), inv_mass[idx6_a // 6],
          inv_mass[idx6_b // 6]], 1
@@ -77,6 +149,7 @@ def make_sweep_meta(inv_mass, idx6_a, idx6_b, parent, mu, kind, skip_b,
         meta_f=torch.as_tensor(mf, device=device),
         rows=rows,
         n_push=max(int(normal.sum()), 1),
+        groups=groups,
     )
 
 
@@ -91,58 +164,83 @@ def _dv(im, ii, j):
     return torch.cat([im * j[0:3], ang], 0)
 
 
+def clamp_impulse(kind, cand, lo, hi, mu, lam, parent, zero):
+    """A row's new impulse from its candidate: the joint row's streamed
+    bounds, ``[0, inf)`` for a contact normal, ``+-mu * lam[parent]`` for a
+    friction row (the parent's impulse as it stands)."""
+    if kind == KIND_JOINT:
+        return torch.minimum(torch.maximum(cand, lo), hi)
+    if kind == KIND_NORMAL:
+        return torch.maximum(cand, zero)
+    lim = mu * lam[parent]
+    return torch.minimum(torch.maximum(cand, -lim), lim)
+
+
+def visit_row(v, lam, at, j, dva, dvb, ia6, ib6, rhs, ie, clamp):
+    """One row visit of a sequential-impulse pass, on ``[B]`` vectors:
+    ``new = clamp(lam[at] + (rhs - J.v) * ie)`` and both bodies' new
+    velocities from the values in ``v`` [NB*6, B] (body B left out where
+    ``ib6`` is None). Returns the stores, ``(tensor, index, value)``, for the
+    caller to make."""
+    a6 = slice(ia6, ia6 + 6)
+    va = v[a6]
+    jv = (j[0:6] * va).sum(0)
+    if ib6 is not None:
+        b6 = slice(ib6, ib6 + 6)
+        vb = v[b6]
+        jv = jv + (j[6:12] * vb).sum(0)
+    old = lam[at]
+    new = clamp(old + (rhs - jv) * ie)
+    d = new - old
+    stores = [(lam, at, new), (v, a6, va + dva * d)]
+    if ib6 is not None:
+        stores.append((v, b6, vb + dvb * d))
+    return stores
+
+
+def run_groups(groups, n_rows: int, visit):
+    """One pass of a plain sweep: per group (one row each where ``groups``
+    is None), ``visit(r)`` gives each row's stores from the values before
+    the group (load phase), and they are made after it (store phase), as
+    the TPU kernels' groups mode does."""
+    for start, size in groups if groups is not None else ((r, 1) for r in range(n_rows)):
+        stores = [s for r in range(start, start + size) for s in visit(r)]
+        for dst, at, val in stores:
+            dst[at] = val
+
+
 def sweep_plain(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta, n_iters: int):
-    """Loop-over-rows version of the sweep; returns (vel6', lam', push_vel6)."""
+    """Loop-over-rows version of the sweep, in ``meta.groups`` (see
+    :func:`run_groups`); returns (vel6', lam', push_vel6)."""
     v = vel6.clone()
     lam = lam0.clone()
     pv = torch.zeros_like(vel6)
     plam = torch.zeros((meta.n_push, vel6.shape[1]), dtype=vel6.dtype, device=vel6.device)
     zero = torch.zeros((), dtype=vel6.dtype, device=vel6.device)
+
+    def visit(r):
+        ia6, ib6, kind, parent, skip_b, pslot, mu, im_a, im_b = meta.rows[r]
+        rd = row_j[r].float()  # [12, B]
+        rs = row_s[r]  # [4, B]
+        ia9 = ia6 // 6 * 9
+        dva = _dv(im_a, iinv9[ia9:ia9 + 9], rd[0:6])
+        eff = (rd[0:6] * dva).sum(0)
+        dvb = ib = None
+        if not skip_b:
+            ib, ib9 = ib6, ib6 // 6 * 9
+            dvb = _dv(im_b, iinv9[ib9:ib9 + 9], rd[6:12])
+            eff = eff + (rd[6:12] * dvb).sum(0)
+        ie = torch.where(eff > 1e-12, 1.0 / torch.clamp(eff, min=1e-12), zero)
+        stores = visit_row(
+            v, lam, r, rd, dva, dvb, ia6, ib, rs[_SRHS], ie,
+            lambda c: clamp_impulse(kind, c, rs[_SLO], rs[_SHI], mu, lam, parent, zero))
+        if pslot >= 0:  # the split-impulse pass: its own accumulators
+            stores += visit_row(pv, plam, pslot, rd, dva, dvb, ia6, ib, rs[_SRHSP], ie,
+                                lambda c: torch.maximum(c, zero))
+        return stores
+
     for _ in range(n_iters):
-        for r, (ia6, ib6, kind, parent, skip_b, pslot, mu, im_a, im_b) in enumerate(meta.rows):
-            rd = row_j[r].float()  # [12, B]
-            rs = row_s[r]  # [4, B]
-            ia9 = ia6 // 6 * 9
-            dva = _dv(im_a, iinv9[ia9:ia9 + 9], rd[0:6])
-            eff = (rd[0:6] * dva).sum(0)
-            va = v[ia6:ia6 + 6]
-            jv = (rd[0:6] * va).sum(0)
-            if not skip_b:
-                ib9 = ib6 // 6 * 9
-                dvb = _dv(im_b, iinv9[ib9:ib9 + 9], rd[6:12])
-                eff = eff + (rd[6:12] * dvb).sum(0)
-                vb = v[ib6:ib6 + 6]
-                jv = jv + (rd[6:12] * vb).sum(0)
-            ie = torch.where(eff > 1e-12, 1.0 / torch.clamp(eff, min=1e-12), zero)
-
-            old = lam[r]
-            cand = old + (rs[_SRHS] - jv) * ie
-            if kind == KIND_JOINT:
-                new = torch.minimum(torch.maximum(cand, rs[_SLO]), rs[_SHI])
-            elif kind == KIND_NORMAL:
-                new = torch.maximum(cand, zero)
-            else:
-                lim = mu * lam[parent]
-                new = torch.minimum(torch.maximum(cand, -lim), lim)
-            d = new - old
-            lam[r] = new
-            v[ia6:ia6 + 6] = va + dva * d
-            if not skip_b:
-                v[ib6:ib6 + 6] = vb + dvb * d
-
-            if pslot >= 0:
-                pva = pv[ia6:ia6 + 6]
-                jvp = (rd[0:6] * pva).sum(0)
-                if not skip_b:
-                    pvb = pv[ib6:ib6 + 6]
-                    jvp = jvp + (rd[6:12] * pvb).sum(0)
-                pold = plam[pslot]
-                pnew = torch.maximum(pold + (rs[_SRHSP] - jvp) * ie, zero)
-                dp = pnew - pold
-                plam[pslot] = pnew
-                pv[ia6:ia6 + 6] = pva + dva * dp
-                if not skip_b:
-                    pv[ib6:ib6 + 6] = pvb + dvb * dp
+        run_groups(meta.groups, len(meta.rows), visit)
     return v, lam, pv
 
 
@@ -239,8 +337,10 @@ def solver_sweep_envlast_slim(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta,
     """The fused sweep; returns (vel6', lam', push_vel6), all f32 ``[*, B]``.
 
     Rows ``meta.meta_i.shape[0]`` and beyond (padding) are not visited and
-    keep their ``lam0``. On CUDA tensors this launches the kernel or raises;
-    on CPU tensors it runs the plain version."""
+    keep their ``lam0``. Rows are visited in their order in the arrays, in
+    ``meta.groups`` where the meta has them (checked when it was made). On
+    CUDA tensors this launches the kernel or raises; on CPU tensors it runs
+    the plain version."""
     _check(row_j, row_s, vel6, lam0, iinv9, meta)
     if row_j.device.type == "cuda":
         return KERNEL.launch(row_j, row_s, vel6, lam0, iinv9, meta, n_iters)

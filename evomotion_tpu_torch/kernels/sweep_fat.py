@@ -2,8 +2,13 @@
 
 Port of ``solver_sweep`` (evomotion_tpu/physics/solver_pallas.py:191, kernel
 ``_sweep_kernel``), the sweep of the per-env physics step. ``n_iters``
-passes over the constraint rows, visited strictly in order within each env,
-envs independent; see ``csrc/solver_sweep.cu`` for the per-row arithmetic.
+passes over the constraint rows, visited in the order the caller laid them
+out, envs independent; see ``csrc/solver_sweep.cu`` for the per-row
+arithmetic. The ``scheduled`` row order's ``groups`` go into the meta
+(:func:`make_fat_meta`), checked as for the slim sweep
+(:func:`.sweep.check_groups`): the plain version runs each group's load
+phase before its store phase, the CUDA kernel visits the rows one at a time,
+and the check makes the two equal.
 
 Row layout (``ROW_F`` = 28 f32 per row, computed by the caller): J (12:
 a_lin, a_ang, b_lin, b_ang), dv_a = Minv_a J_a^T (6), dv_b (6), rhs, lo, hi,
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from .build import NvccLibrary
-from .sweep import KIND_JOINT, KIND_NORMAL
+from .sweep import checked_groups, clamp_impulse, run_groups, visit_row
 
 ROW_F = 28
 _J, _DVA, _DVB, _RHS, _LO, _HI, _IEF = 0, 12, 18, 24, 25, 26, 27
@@ -41,10 +46,15 @@ class FatMeta(NamedTuple):
     meta_i: torch.Tensor  # [NR, 4] int32: ia6, ib6 (-1: body B static), kind, parent
     mu: torch.Tensor  # [NR] f32 friction coefficient
     rows: tuple  # per-row Python tuples (ia6, ib6, kind, parent, mu): plain version
+    groups: tuple | None = None  # checked ((start, size), ...); None: one row at a time
 
 
-def make_fat_meta(idx6_a, idx6_b, parent, mu, kind, skip_b, device) -> FatMeta:
-    """Per-row tables on ``device``, made once per model and row set."""
+def make_fat_meta(idx6_a, idx6_b, parent, mu, kind, skip_b, device, groups=None,
+                  chunk=None) -> FatMeta:
+    """Per-row tables on ``device``, made once per model and row set.
+    ``groups`` (the scheduled order's) are checked here, once, against
+    ``chunk``, the chunk they were built for."""
+    groups = checked_groups(groups, chunk, idx6_a, idx6_b, parent, skip_b, len(idx6_a))
     idx6_b = np.where(np.asarray(skip_b, bool), -1, np.asarray(idx6_b))
     mi = np.stack([np.asarray(idx6_a), idx6_b, np.asarray(kind), np.asarray(parent)], 1)
     mi = mi.astype(np.int32).reshape(-1, 4)
@@ -53,7 +63,7 @@ def make_fat_meta(idx6_a, idx6_b, parent, mu, kind, skip_b, device) -> FatMeta:
         (a, b, k, p, m) for (a, b, k, p), m in zip(mi.tolist(), mu.tolist())
     )
     return FatMeta(torch.as_tensor(mi, device=device), torch.as_tensor(mu, device=device),
-                   rows)
+                   rows, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -62,39 +72,24 @@ def make_fat_meta(idx6_a, idx6_b, parent, mu, kind, skip_b, device) -> FatMeta:
 
 
 def sweep_fat_plain(row_data, vel6, lam0, meta: FatMeta, n_iters: int):
-    """Loop-over-rows version of the sweep; returns (vel6', lam')."""
+    """Loop-over-rows version of the sweep, in ``meta.groups`` (see
+    :func:`.sweep.run_groups`); returns (vel6', lam')."""
     b, nb, _ = vel6.shape
     rd = row_data.permute(1, 2, 0)  # [NR, 28, B] view
     v = vel6.reshape(b, nb * 6).t().clone()  # [NB*6, B]
     lam = lam0.t().clone()  # [NR, B]
     zero = torch.zeros((), dtype=vel6.dtype, device=vel6.device)
+
+    def visit(r):
+        ia6, ib6, kind, parent, mu = meta.rows[r]
+        x = rd[r]
+        return visit_row(
+            v, lam, r, x[_J:_J + 12], x[_DVA:_DVA + 6], x[_DVB:_DVB + 6], ia6,
+            ib6 if ib6 >= 0 else None, x[_RHS], x[_IEF],
+            lambda c: clamp_impulse(kind, c, x[_LO], x[_HI], mu, lam, parent, zero))
+
     for _ in range(n_iters):
-        for r, (ia6, ib6, kind, parent, mu) in enumerate(meta.rows):
-            x = rd[r]
-            va = v[ia6:ia6 + 6]
-            jv = (x[_J:_J + 6] * va).sum(0)
-            if ib6 >= 0:
-                vb = v[ib6:ib6 + 6]
-                jv = jv + (x[_J + 6:_J + 12] * vb).sum(0)
-            old = lam[r]
-            cand = old + (x[_RHS] - jv) * x[_IEF]
-            if kind == KIND_JOINT:
-                new = torch.minimum(torch.maximum(cand, x[_LO]), x[_HI])
-            elif kind == KIND_NORMAL:
-                new = torch.maximum(cand, zero)
-            else:
-                lim = mu * lam[parent]
-                new = torch.minimum(torch.maximum(cand, -lim), lim)
-            d = new - old
-            lam[r] = new
-            # both bodies' new velocities from the pre-row values, then A, B
-            new_a = va + x[_DVA:_DVA + 6] * d
-            if ib6 >= 0:
-                new_b = vb + x[_DVB:_DVB + 6] * d
-                v[ia6:ia6 + 6] = new_a
-                v[ib6:ib6 + 6] = new_b
-            else:
-                v[ia6:ia6 + 6] = new_a
+        run_groups(meta.groups, len(meta.rows), visit)
     return v.t().reshape(b, nb, 6).contiguous(), lam.t().contiguous()
 
 
@@ -184,16 +179,12 @@ def _check(row_data, vel6, lam0, meta: FatMeta):
         raise ValueError(f"meta has {len(meta.rows)} rows, row_data {nr}")
 
 
-def solver_sweep(row_data, vel6, lam0, meta: FatMeta, n_iters: int, groups=None):
+def solver_sweep(row_data, vel6, lam0, meta: FatMeta, n_iters: int):
     """The sweep; returns (vel6' [B, NB, 6], lam' [B, NR]).
 
-    On CUDA tensors this launches the kernel or raises; on CPU tensors it
-    runs the plain version. ``groups`` (the scheduled row order's Jacobi
-    groups) is not ported yet."""
-    if groups is not None:
-        raise NotImplementedError(
-            "solver_sweep groups (scheduled row order): not ported yet, see ROADMAP item 0"
-        )
+    Rows are visited in their order in ``row_data``, in ``meta.groups``
+    where the meta has them (checked when it was made). On CUDA tensors this
+    launches the kernel or raises; on CPU tensors it runs the plain version."""
     _check(row_data, vel6, lam0, meta)
     if row_data.device.type == "cuda":
         return KERNEL.launch(row_data, vel6, lam0, meta, n_iters)

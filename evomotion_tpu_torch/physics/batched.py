@@ -240,17 +240,20 @@ class Statics:
 
         self._inv_mass = model.inv_mass
         self._dev = dev
-        self._full_meta = E._solver_meta(model, "full", self.n_pair, self.n_dyn)
-        self.n_full = len(self._full_meta.idx6_a)
+        # the full sweep's rows in model.row_order's visit order
+        self.full_meta = E._solver_meta(model, "full", self.n_pair, self.n_dyn)
+        self.n_full = len(self.full_meta.idx6_a)
+        self.row_order = E.RowOrder(self.full_meta.perm, dev)
 
     @functools.cached_property
     def sweep_meta(self):
         """The slim sweep's per-row metadata on the device, made at its first
         use: the per-env step shares these statics and never reads it."""
-        meta = self._full_meta
+        meta = self.full_meta
         return sp.make_sweep_meta(
             self._inv_mass, meta.idx6_a, meta.idx6_b, meta.parent, meta.mu,
-            meta.kind, meta.skip_b, self.n_full, self._dev,
+            meta.kind, meta.skip_b, self.n_full, self._dev, groups=meta.groups,
+            chunk=meta.chunk,
         )
 
 
@@ -1051,7 +1054,7 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
     if n_dyn:
         vel6 = vel6 + member_x["imp6"]
 
-    # ---- velocity pass + fused split impulse: one sweep, canonical order ----
+    # ---- velocity pass + fused split impulse: one sweep, in visit order ----
     n_full = nrj + n_pair * k + n_dyn + n_pair * k * 2 + n_dyn * 2
     parts = [(joint_j, joint_s), normal_packed, member_normal, friction_packed,
              member_friction]
@@ -1067,11 +1070,13 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
          lam_t0.reshape(n_pair * k * 2, b), m_lam_t0], 0,
     )
     assert all_rows_j.shape[0] == n_full == st.n_full, (all_rows_j.shape, n_full)
+    all_rows_j, all_rows_s, lam0 = st.row_order.to_visit(all_rows_j, all_rows_s, lam0)
     vel_out, lam_all, push6 = sp.solver_sweep_envlast_slim(
         all_rows_j.contiguous(), all_rows_s.contiguous(),
         vel6.reshape(nb * 6, b).contiguous(), lam0.contiguous(),
         iinv_world.reshape(nb * 9, b).contiguous(), st.sweep_meta, model.n_iterations,
     )
+    lam_all = st.row_order.to_canonical(lam_all)
 
     return _finish_step(model, st, dt, pos, quat, vel_out.reshape(nb, 6, b),
                         push6.reshape(nb, 6, b), lam_all, slider_lin_pos, gap_k, active,

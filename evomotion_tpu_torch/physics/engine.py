@@ -3,7 +3,8 @@
 Port of ``evomotion_tpu/physics/engine.py``: the solver constants,
 :class:`PhysicsState` and :class:`StepDiagnostics`, :func:`init_state`, the
 numpy tables computed once per model (static face planes, per-row bodies,
-hull edge directions and the sweeps' per-row metadata), and
+hull edge directions and the sweeps' per-row metadata in the model's row
+visit order), and
 :func:`physics_step`, which steps one world with the per-env step
 (:mod:`.perenv`, the fat-row sweep) and a batch of worlds with the batched
 step (:mod:`.batched`, the slim fused sweep), as the JAX function's
@@ -16,6 +17,7 @@ stepSimulation`` (evo_motion_model/src/environment.cpp:33-43).
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -260,7 +262,7 @@ def _get_hull_edges(model: PhysicsModel):
 
 
 class SolverMeta(NamedTuple):
-    """Static per-row metadata of a sweep (canonical row order)."""
+    """Static per-row metadata of a sweep, in visit order."""
 
     idx6_a: np.ndarray  # [NR] int32 body-A offset into vel6 (body * 6)
     idx6_b: np.ndarray  # [NR] int32
@@ -268,10 +270,148 @@ class SolverMeta(NamedTuple):
     mu: np.ndarray  # [NR] f32 friction coefficient
     kind: np.ndarray  # [NR] int32 KIND_*
     skip_b: np.ndarray  # [NR] bool: body B is static
+    perm: np.ndarray | None = None  # [NR] int32 canonical row of each visit; None: canonical
+    groups: tuple | None = None  # ((start, size), ...) disjoint-body groups of visits
+    chunk: int | None = None  # the row chunk the groups were built and checked against
+
+
+def row_chunk() -> int:
+    """Rows per DMA chunk of the TPU kernels, which bounds the scheduled
+    order's groups: ``EVOMOTION_PALLAS_CHUNK`` (default 8), read as the JAX
+    package reads it, so that both packages make the same groups. Read once
+    per :class:`SolverMeta`, which carries it to ``make_sweep_meta`` and
+    ``make_fat_meta``."""
+    return int(os.environ.get("EVOMOTION_PALLAS_CHUNK", "8"))
+
+
+class RowOrder:
+    """A sweep's visit order on the device: gathers canonical rows into
+    visit order and scatters per-row results back (identity where
+    ``perm`` is None, the canonical order). Built once per row set."""
+
+    def __init__(self, perm, device):
+        self.perm = self.inv = None
+        if perm is not None:
+            self.perm = torch.as_tensor(perm, dtype=torch.int64, device=device)
+            self.inv = torch.argsort(self.perm)
+
+    def to_visit(self, *xs):
+        """Each ``x`` (canonical rows on dim 0) in visit order."""
+        return xs if self.perm is None else tuple(x[self.perm] for x in xs)
+
+    def to_canonical(self, x):
+        """``x`` (visit-order rows on dim 0) back in canonical order."""
+        return x if self.perm is None else x[self.inv]
+
+
+def _schedule_rows(idx6_a, idx6_b, parent, skip_b, chunk=8):
+    """Visit order and disjoint-body GROUPS of the ``scheduled`` row order
+    (port of JAX ``engine._schedule_rows``, same greedy choices).
+
+    Rows are packed chunk by chunk into groups whose rows touch pairwise
+    disjoint dynamic bodies (body A, and body B unless ``skip_b``); a
+    friction row becomes eligible once its parent normal sits in a CLOSED
+    (earlier) group, and no group spans a chunk boundary. Within a chunk the
+    next row is the one whose bodies were used least recently (earlier row
+    first on ties). Returns (perm [N] int32, ((start, size), ...))."""
+    n = len(idx6_a)
+    a = idx6_a // 6
+    bb = np.where(skip_b, -1, idx6_b // 6)
+    last_use = np.full(int(max(a.max(), bb.max()) + 2), -(10**9), np.int64)
+    scheduled = np.zeros(n, bool)
+    parent_ok = parent < 0  # eligible once the parent's group is closed
+    perm = np.empty(n, np.int64)
+    groups = []
+    order_bias = -np.arange(n) * 1e-9  # stable tie-break: earlier first
+    t = 0
+    while t < n:
+        in_chunk = 0
+        while in_chunk < chunk and t < n:
+            group_start = t
+            used = set()
+            closed_parent_ok = parent_ok.copy()
+            while in_chunk < chunk and t < n:
+                score_a = t - last_use[a]
+                score_b = np.where(bb >= 0, t - last_use[bb], 10**9)
+                score = np.minimum(score_a, score_b).astype(np.float64) + order_bias
+                score[scheduled] = -np.inf
+                score[~closed_parent_ok] = -np.inf
+                if used:
+                    bad = np.isin(a, list(used)) | ((bb >= 0) & np.isin(bb, list(used)))
+                    score[bad] = -np.inf
+                v = int(np.argmax(score))
+                if not np.isfinite(score[v]):
+                    break  # nothing fits this group
+                perm[t] = v
+                scheduled[v] = True
+                used.add(int(a[v]))
+                if bb[v] >= 0:
+                    used.add(int(bb[v]))
+                last_use[a[v]] = t
+                if bb[v] >= 0:
+                    last_use[bb[v]] = t
+                t += 1
+                in_chunk += 1
+            if t == group_start:
+                # stuck: no candidate's parent is in the snapshot of closed
+                # groups; recompute eligibility against every scheduled row
+                # and emit a single-row group
+                elig = ~scheduled & ((parent < 0) | scheduled[np.clip(parent, 0, n - 1)])
+                v = int(np.nonzero(elig)[0][0])
+                perm[t] = v
+                scheduled[v] = True
+                last_use[a[v]] = t
+                if bb[v] >= 0:
+                    last_use[bb[v]] = t
+                t += 1
+                in_chunk += 1
+                groups.append((group_start, 1))
+            else:
+                groups.append((group_start, t - group_start))
+            # a group closes: its rows' children become eligible
+            parent_ok = parent_ok | ((parent >= 0) & scheduled[np.clip(parent, 0, n - 1)])
+            if in_chunk >= chunk:
+                in_chunk = 0
+    return perm.astype(np.int32), tuple(groups)
+
+
+def _shuffled_order(n, parent, seed: int) -> np.ndarray:
+    """The ``shuffled:<seed>`` visit order (port of JAX
+    ``engine._shuffled_order``): a seeded random permutation in which every
+    friction row follows its parent normal, siblings in row order."""
+    rng = np.random.RandomState(seed)
+    keys = rng.rand(n)
+    child = parent >= 0
+    keys[child] = keys[np.clip(parent, 0, None)][child] + 1e-9 * (1.0 + np.arange(n)[child])
+    return np.argsort(keys, kind="stable").astype(np.int32)
+
+
+def _permuted(meta: SolverMeta, order: str) -> SolverMeta:
+    """``meta`` in the visit order ``order`` ("scheduled" or "shuffled:<seed>"):
+    per-row fields gathered by ``perm``, friction parents remapped through
+    its inverse (JAX ``_solver_meta``'s non-canonical branch). The scheduled
+    groups carry the chunk they were built for, and ``make_sweep_meta`` and
+    ``make_fat_meta`` check them against it."""
+    chunk = None
+    if order == "scheduled":
+        chunk = row_chunk()
+        perm, groups = _schedule_rows(meta.idx6_a, meta.idx6_b, meta.parent, meta.skip_b,
+                                      chunk)
+    elif order.startswith("shuffled:"):
+        perm, groups = _shuffled_order(len(meta.idx6_a), meta.parent,
+                                       int(order.split(":")[1])), None
+    else:
+        raise ValueError(f"unknown row_order {order!r}")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=np.int32)
+    old_parent = meta.parent[perm]
+    parent = np.where(old_parent >= 0, inv[np.clip(old_parent, 0, None)], -1).astype(np.int32)
+    return SolverMeta(meta.idx6_a[perm], meta.idx6_b[perm], parent, meta.mu[perm],
+                      meta.kind[perm], meta.skip_b[perm], perm, groups, chunk)
 
 
 def _solver_meta(model: PhysicsModel, kind: str, n_pair: int, n_dyn: int) -> SolverMeta:
-    """Per-row sweep metadata in the canonical order.
+    """Per-row sweep metadata, in the visit order of ``model.row_order``.
 
     ``kind="full"``: the velocity sweep over joints | floor normals | member
     normals | floor frictions | member frictions (the batched step's fused
@@ -280,17 +420,16 @@ def _solver_meta(model: PhysicsModel, kind: str, n_pair: int, n_dyn: int) -> Sol
     normals only. ``n_dyn`` counts member contact points (pairs x
     member_manifold_k), flattened pair-major.
 
-    Only the canonical order is ported: ``scheduled`` and ``shuffled:*``
-    visit orders of the full sweep need the kernels' ``groups`` mode and the
-    row permutation, a later slice (ROADMAP item 0)."""
+    For ``kind="full"`` on a model that is not strict_bullet, a row order
+    other than ``canonical`` (``scheduled``, ``shuffled:<seed>``) permutes
+    the rows: ``perm`` gives the canonical row of each visit, and callers
+    gather row data and initial impulses by it and scatter the impulses back
+    through its inverse. ``scheduled`` also returns the disjoint-body
+    ``groups`` the sweeps take. The order is read from the model as given
+    (``finalize`` sets it). The push pass and strict_bullet models keep the
+    canonical order, as in JAX."""
     if kind not in ("full", "push"):
         raise ValueError(f"solver meta kind {kind!r}: 'full' or 'push'")
-    order = getattr(model, "row_order", "scheduled")
-    if kind == "full" and order != "canonical" and not model.strict_bullet:
-        raise NotImplementedError(
-            f"row_order={order!r}: only 'canonical' is ported (the scheduled "
-            "and shuffled orders need the sweeps' groups mode, ROADMAP item 0)"
-        )
     k = MAX_CONTACTS_PER_PAIR
     pair_np = model.pair_body
     static_sel = model.inv_mass[pair_np[:, 1]] == 0.0 if len(pair_np) else np.zeros(0, bool)
@@ -360,7 +499,11 @@ def _solver_meta(model: PhysicsModel, kind: str, n_pair: int, n_dyn: int) -> Sol
             np.ones(n_pair * 2 * k, bool), np.zeros(n_dyn * 2, bool),
         ]
     )
-    return SolverMeta(idx6_a, idx6_b, parent, mu, kind_arr, skip_b)
+    meta = SolverMeta(idx6_a, idx6_b, parent, mu, kind_arr, skip_b)
+    order = getattr(model, "row_order", "scheduled")
+    if order != "canonical" and not model.strict_bullet and len(idx6_a) > 1:
+        meta = _permuted(meta, order)
+    return meta
 
 
 # ---------------------------------------------------------------------------

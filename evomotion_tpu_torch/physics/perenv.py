@@ -54,27 +54,29 @@ def _pack_rows(j, dva, dvb, rhs, lo, hi, inv_eff):
 
 
 class FatSolver:
-    """One sweep of the per-env step (``kind`` "full" or "push"): the port of
-    ``_get_pallas_solver`` / ``_build_pallas_solver``. Its row metadata is made
-    once per model; a call takes env-last rows and runs the fat-row sweep on
-    all B worlds at once, with no padding (the CUDA kernel takes any B). Only
-    the canonical row order exists (``_solver_meta`` raises for the others),
-    so there is no row permutation to apply."""
+    """One sweep of the per-env step: the port of ``_get_pallas_solver`` /
+    ``_build_pallas_solver``. Its row metadata (a :class:`.engine.SolverMeta`
+    of kind "full" or "push") is put on the device once; a call takes
+    env-last rows in canonical order and runs the fat-row sweep on all B
+    worlds at once, with no padding (the CUDA kernel takes any B). Under a
+    row order other than canonical it gathers the rows and initial impulses
+    into visit order and scatters the impulses back, as the JAX solver does
+    with ``perm`` / ``inv_perm``."""
 
-    def __init__(self, model: PhysicsModel, kind: str, n_pair: int, n_dyn: int, device):
-        m = E._solver_meta(model, kind, n_pair, n_dyn)
-        self.n_rows = len(m.idx6_a)
-        self.n_iters = model.n_iterations
-        self.meta = sf.make_fat_meta(m.idx6_a, m.idx6_b, m.parent, m.mu, m.kind, m.skip_b,
-                                     device)
+    def __init__(self, meta: E.SolverMeta, n_iters: int, device):
+        self.n_iters = n_iters
+        self.meta = sf.make_fat_meta(meta.idx6_a, meta.idx6_b, meta.parent, meta.mu, meta.kind,
+                                     meta.skip_b, device, groups=meta.groups, chunk=meta.chunk)
+        self.order = E.RowOrder(meta.perm, device)
 
     def __call__(self, rows, vel6, lam0):
         """rows [NR, 28, B], vel6 [NB, 6, B], lam0 [NR, B] -> (vel6', lam')."""
+        rows, lam0 = self.order.to_visit(rows, lam0)
         v, lam = sf.solver_sweep(
             rows.permute(2, 0, 1).contiguous(), vel6.permute(2, 0, 1).contiguous(),
             lam0.t().contiguous(), self.meta, self.n_iters,
         )
-        return v.permute(1, 2, 0), lam.t()
+        return v.permute(1, 2, 0), self.order.to_canonical(lam.t())
 
 
 def _floor_contact_rows(model, st, pos, lin_vel, ang_vel, iinv_world, dt, contacts):
@@ -302,9 +304,12 @@ class PerEnvStep(bt.BatchedStep):
             )
         super().__init__(model, dt, device)
         st = self.statics
-        self.solve_push = (FatSolver(model, "push", st.n_pair, st.n_dyn, self.device)
-                           if st.n_pair or st.n_dyn else None)
-        self.solve_full = FatSolver(model, "full", st.n_pair, st.n_dyn, self.device)
+        n_it = model.n_iterations
+        self.solve_push = (
+            FatSolver(E._solver_meta(model, "push", st.n_pair, st.n_dyn), n_it, self.device)
+            if st.n_pair or st.n_dyn else None
+        )
+        self.solve_full = FatSolver(st.full_meta, n_it, self.device)
 
     def _run(self, *state_envlast):
         return step_perenv(self.model, self.statics, self.solve_push, self.solve_full,

@@ -18,24 +18,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
-import tempfile
 import time
 
-
-def _device_events(prof):
-    """(name, microseconds) of every kernel, copy and fill the card ran,
-    read from the profiler's chrome trace (stable across torch versions)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    return [(e["name"], float(e.get("dur", 0.0))) for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+from .tools._profile import card_name, device_events
 
 
 def main(argv=None):
@@ -57,11 +43,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA card", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
+    card = card_name()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     env = RobotWalk(device=dev, per_env_step=args.per_env)
@@ -82,7 +64,7 @@ def main(argv=None):
         wall = time.perf_counter() - t0
 
     kernels = {}
-    for name, us in _device_events(prof):
+    for name, us in device_events(prof):
         k = kernels.setdefault(name, [0, 0.0])
         k[0] += 1
         k[1] += us

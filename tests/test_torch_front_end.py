@@ -67,12 +67,18 @@ def test_resources_are_byte_copies():
 
 
 def test_row_schedule_env_flag_sets_row_order(monkeypatch, spiders):
-    """finalize()'s rule: canonical unless EVOMOTION_ROW_SCHEDULE=1."""
+    """finalize()'s rule: canonical unless EVOMOTION_ROW_SCHEDULE=1; the
+    flag's scheduled order gives the port the JAX package's permutation and
+    groups."""
     monkeypatch.setenv("EVOMOTION_ROW_SCHEDULE", "1")
     tm, _ = t_compile(t_robot.load(DEFAULT_SKELETON))
-    assert tm.row_order == "scheduled"
-    with pytest.raises(NotImplementedError):
-        TE._solver_meta(tm, "full", TE.n_manifold_pairs(tm), TE._n_dyn_contacts(tm))
+    jm, _ = j_compile(j_robot.load(DEFAULT_SKELETON))
+    assert tm.row_order == jm.row_order == "scheduled"
+    n_pair, n_dyn = TE.n_manifold_pairs(tm), TE._n_dyn_contacts(tm)
+    t_meta = TE._solver_meta(tm, "full", n_pair, n_dyn)
+    j_meta = JE._solver_meta(jm, "full", n_pair, n_dyn)
+    np.testing.assert_array_equal(t_meta.perm, j_meta[6])
+    assert t_meta.groups == j_meta[7] and len(t_meta.groups) == 298
 
 
 def test_host_tables_match(spiders):

@@ -1,4 +1,6 @@
-"""Tests of the port's CUDA kernels on the card (marker ``gpu``).
+"""Tests of the port's CUDA kernels on the card (marker ``gpu``): the
+three sweeps against their plain versions, kernels #1 and #2 also on
+scheduled rows with their groups.
 
 They skip where torch sees no card. This file imports no JAX, so it also
 runs on a host where JAX is not installed: ``python -m pytest --noconftest
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from evomotion_tpu_torch.kernels import sweep as tsp
+from evomotion_tpu_torch.kernels import sweep_envlast as tse
 from evomotion_tpu_torch.kernels import sweep_fat as tsf
 
 NB = 4  # body 0 static (a floor), bodies 1-3 dynamic
@@ -120,6 +123,24 @@ def random_fat_rows(seed, B, push=False):
     return rows, vel6, lam0, meta
 
 
+def random_envlast_rows(seed, B):
+    """Env-last fat rows [NR_PAD, 29, B] (the random_fat_rows set, its 25
+    rows padded to 32 with random rows that are not visited), vel6
+    [NB*6, B], lam0 [NR_PAD, B], the row metadata and the real row count.
+    Contact normal rows carry a positive split-impulse rhs in column 28."""
+    rows, vel6, lam0, meta = random_fat_rows(seed, B)
+    rng = np.random.default_rng(seed + 100)
+    nr = rows.shape[1]
+    out = rng.normal(size=(NR_PAD, tse.ROW_FP, B)).astype(np.float32)
+    out[:nr, :28] = rows.transpose(1, 2, 0)
+    normal = meta[4] == tsp.KIND_NORMAL
+    out[:nr, 28] = np.where(normal[:, None], np.abs(rng.normal(size=(nr, B))), 0.0)
+    lam = (np.abs(rng.normal(size=(NR_PAD, B))) * 0.1).astype(np.float32)
+    lam[:nr] = lam0.T
+    vel = np.ascontiguousarray(vel6.reshape(B, -1).T)
+    return out, vel, lam, meta, nr
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 64])
 def test_fat_kernel_matches_plain_on_card(b):
@@ -159,3 +180,60 @@ def test_kernel_matches_plain_on_card():
         ref = tsp.sweep_plain(*args, m, 3)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 1000])
+def test_envlast_kernel_matches_plain_on_card(b):
+    """The CUDA env-last fat-row sweep against its plain version on the same
+    card inputs: padding rows keep lam0, the push pass moves bodies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    rows, vel6, lam0, meta, nr = random_envlast_rows(4, b)
+    m = tse.make_envlast_meta(*meta, nr, dev)
+    args = [torch.as_tensor(x, device=dev) for x in (rows, vel6, lam0)]
+    before = tse.KERNEL.launches
+    got = tse.solver_sweep_envlast(*args, m, 3)
+    assert tse.KERNEL.launches == before + 1
+    ref = tse.sweep_envlast_plain(*args, m, 3)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+    assert torch.equal(got[1][nr:], args[2][nr:])
+    assert float(got[2].abs().max()) > 0.0
+
+
+def _scheduled(meta):
+    """The scheduled order of a canonical row set, as _solver_meta makes it."""
+    from evomotion_tpu_torch.physics import engine as TE
+
+    return TE._permuted(TE.SolverMeta(*meta), "scheduled")
+
+
+@pytest.mark.gpu
+def test_grouped_kernels_match_grouped_plain_on_card():
+    """Kernels #1 and #2 on scheduled rows with their groups (the kernels
+    visit the rows one at a time) against the grouped plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    row_j, row_s, vel6, lam0, iinv9, inv_mass, meta = random_rows(7, 1000)
+    s = _scheduled(meta)
+    full = np.concatenate([s.perm, np.arange(N_ROWS, NR_PAD)])
+    m = tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, dev, groups=s.groups, chunk=s.chunk)
+    args = [torch.as_tensor(x, device=dev) for x in (row_j[full], row_s[full], vel6,
+                                                      lam0[full], iinv9)]
+    got = tsp.solver_sweep_envlast_slim(*args, m, 3)
+    ref = tsp.sweep_plain(*args, m, 3)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+    rows, vel6, lam0, meta = random_fat_rows(8, 1)
+    s = _scheduled(meta)
+    m = tsf.make_fat_meta(*s[:6], dev, groups=s.groups, chunk=s.chunk)
+    args = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+            for x in (rows[:, s.perm], vel6, lam0[:, s.perm])]
+    got = tsf.solver_sweep(*args, m, 3)
+    ref = tsf.sweep_fat_plain(*args, m, 3)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)

@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed: importing it, every module
-under it, and chip_smoke.py must import neither ``jax`` nor any module of
-the JAX package ``evomotion_tpu``."""
+under it (the ``tools`` subpackage of profilers too), and chip_smoke.py
+must import neither ``jax`` nor any module of the JAX package
+``evomotion_tpu``."""
 
 import pathlib
 import subprocess
@@ -22,6 +23,8 @@ bad = sorted(m for m in sys.modules
              or (m.startswith("jax") and sys.modules[m] is not None))
 print(len(names), bad)
 assert not bad, bad
+assert {"evomotion_tpu_torch.tools.prof_kernel",
+        "evomotion_tpu_torch.tools.prof_step"} <= set(names), names
 """
 
 

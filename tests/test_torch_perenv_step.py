@@ -7,7 +7,9 @@ port's ``physics_step`` (the per-env step, the fat-row sweep's plain
 version). The same numpy-made state is fed to both and stepped 3 times; the
 state and the diagnostics must agree at 2e-4 after every step (the
 tolerance of the JAX package's own per-env check, tests/test_batched_step.py
-``_compare``) and the contact and member feature ids exactly.
+``_compare``) and the contact and member feature ids exactly, in every row
+visit order of the full sweep (canonical, scheduled with the sweep's groups,
+shuffled:7), each against the same order of JAX.
 
 Fixtures: a hinge + slider model (tests/test_solver_pallas.py ``_build``),
 two boxes stacked on a floor (floor contacts and member contacts: both
@@ -22,6 +24,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from evomotion_tpu.physics.engine import init_state, physics_step
@@ -30,7 +33,7 @@ from evomotion_tpu.physics.shapes import get_shape
 from evomotion_tpu_torch import convert
 from evomotion_tpu_torch.kernels import sweep_fat
 from evomotion_tpu_torch.physics import engine as tengine
-from test_torch_step import perturbed_states
+from test_torch_step import ROW_ORDERS, perturbed_states
 
 DT = 1.0 / 60.0
 ATOL = 2e-4
@@ -112,11 +115,20 @@ def compare_perenv(model, n_steps=3, seed=3):
 
 
 def test_hinge_slider_matches_jax(monkeypatch):
+    check_hinge_slider(monkeypatch, "canonical")
+
+
+@pytest.mark.parametrize("row_order", [o for o in ROW_ORDERS if o != "canonical"])
+def test_hinge_slider_matches_jax_in_row_order(monkeypatch, row_order):
+    check_hinge_slider(monkeypatch, row_order)
+
+
+def check_hinge_slider(monkeypatch, row_order):
     calls = []
     plain = sweep_fat.sweep_fat_plain
     monkeypatch.setattr(sweep_fat, "sweep_fat_plain",
                         lambda rd, *a: calls.append(rd.shape[1]) or plain(rd, *a))
-    model = hinge_slider_model()
+    model = hinge_slider_model(row_order=row_order)
     sp = compare_perenv(model)
     assert all(torch.isfinite(x.float()).all() for x in sp)
     # each step: the push pass over the floor and member normal rows, then the

@@ -5,7 +5,10 @@ across by ``evomotion_tpu_torch.convert``) and the same numpy-made states go
 through JAX's vmapped ``physics_step`` (solver="pallas": the env-last path,
 its sweep kernel in interpret mode) and the port's ``BatchedStep`` on the
 CPU (the sweep's plain version). Tolerances are those of the JAX package's
-own vmapped-vs-per-env check (tests/test_batched_step.py ``_compare``).
+own vmapped-vs-per-env check (tests/test_batched_step.py ``_compare``), in
+every row visit order (``canonical``, ``scheduled`` with the sweep's
+groups, ``shuffled:7``): each order of the port is held against the same
+order of JAX.
 
 The fixture builders are copies of tests/test_batched_step.py's; the other
 ``test_torch_step_*`` files import them from here.
@@ -156,13 +159,26 @@ def compare_steps(model, n_steps=3, batch=3, atol=2e-4, topm_atol=None):
     return sp
 
 
+ROW_ORDERS = ("canonical", "scheduled", "shuffled:7")
+
+
+def order_cases(builds):
+    """(build, extra, row_order) cases over ROW_ORDERS; the canonical case
+    keeps the plain id."""
+    return [
+        pytest.param(build, extra, order,
+                     id=name if order == "canonical" else f"{name}-{order}")
+        for name, build, extra in builds for order in ROW_ORDERS
+    ]
+
+
 @pytest.mark.parametrize(
-    "build, member_contact",
-    [(_cartpole_like_model, False), (_contact_model, False), (_dyn_only_model, True)],
-    ids=["joint_only", "contact", "dyn_only"],
+    "build, member_contact, row_order",
+    order_cases([("joint_only", _cartpole_like_model, False),
+                 ("contact", _contact_model, False), ("dyn_only", _dyn_only_model, True)]),
 )
-def test_step_matches_jax(build, member_contact):
-    sp = compare_steps(build())
+def test_step_matches_jax(build, member_contact, row_order):
+    sp = compare_steps(dataclasses.replace(build(), row_order=row_order))
     assert all(torch.isfinite(x).all() for x in (sp.pos, sp.quat, sp.lin_vel))
     if member_contact:  # the overlapping boxes' member rows really engage
         assert float(sp.dyn_lambda.abs().sum()) > 0.0

@@ -8,6 +8,12 @@ solver iterations. bf16 J is compared with both sides fed the same
 materialised bf16 values: under CPU interpret XLA elides a bf16 convert pair
 built inside the graph, so JAX's in-graph bf16 is really f32.
 
+The grouped case runs the rows in the ``scheduled`` order with its groups
+through both (JAX's groups mode, the port's grouped plain version), and
+holds the grouped plain version equal to visiting the same rows one at a
+time, which is what the CUDA kernel does. ``make_sweep_meta`` and
+``make_fat_meta`` reject groups that break the invariant behind that.
+
 The CUDA kernel itself is held against this plain version on the card by
 chip_smoke.py and by test_torch_gpu.py.
 """
@@ -19,7 +25,9 @@ import torch
 
 from evomotion_tpu.physics import solver_pallas as jsp
 from evomotion_tpu_torch.kernels import sweep as tsp
-from test_torch_gpu import N_ROWS, random_rows
+from evomotion_tpu_torch.kernels import sweep_fat as tsf
+from test_torch_gpu import N_ROWS, NR_PAD, random_rows
+from test_torch_sweep_fat import scheduled
 
 B = jsp.TILE  # the JAX kernel's env tile
 
@@ -78,3 +86,64 @@ def test_sweep_wrapper_rejects_bad_inputs():
     before = tsp.KERNEL.launches
     tsp.solver_sweep_envlast_slim(*args, m, 1)  # CPU: plain version, no launch
     assert tsp.KERNEL.launches == before
+
+
+def scheduled_rows(seed, b):
+    """random_rows in the scheduled order: rows and lam0 gathered by perm
+    (padding rows stay), the permuted metadata with its groups."""
+    row_j, row_s, vel6, lam0, iinv9, inv_mass, meta = random_rows(seed, b)
+    s = scheduled(meta)
+    full = np.concatenate([s.perm, np.arange(N_ROWS, NR_PAD)])
+    return row_j[full], row_s[full], vel6, lam0[full], iinv9, inv_mass, s
+
+
+def test_grouped_plain_sweep_matches_jax_kernel():
+    row_j, row_s, vel6, lam0, iinv9, inv_mass, s = scheduled_rows(5, B)
+    out = jsp.solver_sweep_envlast_slim(
+        jnp.asarray(row_j), jnp.asarray(row_s), jnp.asarray(vel6), jnp.asarray(lam0),
+        jnp.asarray(iinv9), inv_mass, s.idx6_a, s.idx6_b, s.parent, s.mu, 3, N_ROWS,
+        kind=s.kind, skip_b=s.skip_b, interpret=True, groups=s.groups,
+    )
+    args = [torch.as_tensor(x) for x in (row_j, row_s, vel6, lam0, iinv9)]
+    grouped = tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu", groups=s.groups,
+                                  chunk=s.chunk)
+    got = tsp.solver_sweep_envlast_slim(*args, grouped, 3)
+    for name, a, b in zip(("vel6", "lam", "push_vel6"), got, out):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=0, err_msg=name)
+    # under the checked invariant, one row at a time computes the same values
+    seq = tsp.solver_sweep_envlast_slim(
+        *args, tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu"), 3)
+    assert all(torch.equal(a, b) for a, b in zip(seq, got))
+
+
+def test_make_meta_rejects_groups_that_break_the_invariant():
+    """Each broken condition of check_groups raises, in the slim and the
+    fat meta alike: a gap, a group over a chunk boundary, two rows of a
+    group on one body, a friction row whose parent is not in an earlier
+    group."""
+    *_, inv_mass, meta = random_rows(6, 2)
+    s = scheduled(meta)
+    ok = s.groups
+    split = [(a, 1) for a in range(N_ROWS)]  # one row a group
+    shared = next(r for r in range(N_ROWS - 1)
+                  if (r + 1) % 8 and s.idx6_a[r] == s.idx6_a[r + 1])
+    friction = int(np.nonzero(s.parent >= 0)[0][0])
+    late_parent = s.parent.copy()
+    late_parent[friction] = friction + 1  # a parent visited after its child
+    cases = {
+        "tile": (s.parent, ok[1:]),
+        "chunk": (s.parent, sorted([g for g in split if g[0] not in (7, 8)] + [(7, 2)])),
+        "body": (s.parent, sorted([g for g in split if g[0] not in (shared, shared + 1)]
+                                  + [(shared, 2)])),
+        "parent": (late_parent, split),
+    }
+    for word, (parent, groups) in cases.items():
+        rows = (s.idx6_a, s.idx6_b, parent, s.mu, s.kind, s.skip_b)
+        with pytest.raises(ValueError, match=word):
+            tsp.make_sweep_meta(inv_mass, *rows, N_ROWS, "cpu", groups=groups, chunk=8)
+        with pytest.raises(ValueError, match=word):
+            tsf.make_fat_meta(*rows, "cpu", groups=groups, chunk=8)
+    with pytest.raises(ValueError, match="chunk they were built for"):
+        tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu", groups=ok)
+    tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu", groups=split, chunk=8)
+    tsf.make_fat_meta(*s[:6], "cpu", groups=ok, chunk=8)
