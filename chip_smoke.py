@@ -21,6 +21,10 @@ printed with its seconds:
    first step after a reset of the spider, for bf16 rows (the shipped
    default) and f32 rows; the kernel runs on all envs, its plain PyTorch
    version on the card on 256 of them, and the outputs must agree within TOL;
+   each launch plan is printed (blocks, envs per block, threads, shared
+   memory, stages, copy path, and the CUDA runtime's resident blocks per SM
+   for it on this card) with ptxas's registers and spills of the kernel
+   instance launched, and the chain estimate beside the roofline bound;
 4. step check: one batched physics step of 4 of those envs on the card
    (kernel) against the same step on the CPU (plain version), f32 rows;
 5. groups check: the same first step under ``row_order="scheduled"``: the
@@ -56,7 +60,7 @@ printed with its seconds:
     spider's full-sweep metadata against its plain version on all envs, on
     ``prof_step``'s inputs (rows N(0, 1) * 0.01, small outputs; timed) and
     on rows at O(1) scale; each output within TOL and within REL_TOL of its
-    own largest magnitude; its time and bound;
+    own largest magnitude; its time, bound, chain estimate and launch plan;
 13. profilers: ``tools.prof_kernel`` (five cases) and ``tools.prof_step``
     (phase times and launches), each once through its ``main``; the
     env-last sweep's launches (set to 0 just before each, read just after)
@@ -108,20 +112,60 @@ ENVLAST_TPU_KERNEL = ("solver_sweep_envlast -> _sweep_kernel_envlast "
                       "(evomotion_tpu/physics/solver_pallas.py:300, pallas_call :375)")
 FAT_TPU_KERNEL = ("solver_sweep -> _sweep_kernel "
                   "(evomotion_tpu/physics/solver_pallas.py:191, pallas_call :276)")
-# An estimate, not a measurement, printed apart from the kernels line: the
-# fat-row sweep at B=1 is a chain of dependent row visits, each reading
-# velocities the previous visit may have written. Its dependent fp32
-# operations per visit, as counted here: a 12-term dot product (one
-# multiply, then four levels of adds), rhs - jv, x inv_eff, + lam, the
-# two-sided clamp (2), the impulse delta, and the velocity update (one FMA):
-# 12. At an assumed 4-cycle fp32 latency a visit takes 48 cycles at the SM
-# clock that nvidia-smi reports; the shared-memory round trips that every
-# visit also pays are left out, so the true floor is higher.
+# An estimate, not a measurement: every sweep is a chain of dependent row
+# visits per env, each reading velocities the previous visit may have
+# written. Its dependent fp32 operations per visit, as counted here: a
+# 12-term dot product (one multiply, then four levels of adds), rhs - jv,
+# x inv_eff, + lam, the two-sided clamp (2), the impulse delta, and the
+# velocity update (one FMA): 12. At an assumed 4-cycle fp32 latency a visit
+# takes 48 cycles at the SM clock that nvidia-smi reports; the shared-memory
+# round trips that every visit also pays are left out, so the true floor is
+# higher. Kernels #1 and #3 add the push pass's chain, one more visit per
+# contact normal row. Printed beside the roofline bound, apart from the
+# kernels line, which holds only what this run measured and the bound.
 CHAIN_OPS = 12
 FP32_LATENCY_CYCLES = 4
 SEQ_EPISODES = {"cartpole": 3, "cartpole3d": 3, "robot_walk": 1}
 SCHEDULED_STEPS = 60  # env steps of the scheduled rollout after its reset
 EPISODE_LINE = re.compile(r"^episode (\d+): (\d+) steps, return (\S+)$")
+
+
+def ptxas_report(build_log):
+    """Per kernel function of an nvcc -Xptxas -v log: registers and spill
+    bytes, ``[{"function", "registers", "spill_stores", "spill_loads"}]``."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def launch_info(kernel, plan, b, n_sms, instance, label):
+    """Prints a kernel's launch plan at ``b`` envs, the CUDA runtime's
+    resident blocks per SM for it on this card (and the waves of blocks
+    that gives over ``n_sms`` SMs), and ptxas's report of the kernel
+    instance launched (the function whose mangled name holds ``instance``);
+    returns them as the kernels line's ``launch`` object."""
+    per_sm = kernel.blocks_per_sm(plan)
+    info = {**plan.describe(b), "blocks_per_sm": per_sm,
+            "waves": -(-plan.blocks(b) // (per_sm * n_sms)) if per_sm else None,
+            "ptxas": [f for f in ptxas_report(kernel.build_log)
+                      if instance in f["function"]]}
+    print(f"{label} launch plan at B={b}: " + ", ".join(
+        f"{k} {v}" for k, v in info.items() if k != "ptxas"), flush=True)
+    for f in info["ptxas"]:
+        print(f"{label} ptxas: {f.get('registers')} registers, spill stores "
+              f"{f.get('spill_stores')} B, loads {f.get('spill_loads')} B ({f['function']})",
+              flush=True)
+    return info
 
 
 def phase(name):
@@ -244,6 +288,25 @@ def fat_check(inp, cpu, label):
     return out, err, plain_ms
 
 
+def print_chain(visits, clock_mhz, bound_ms):
+    """Prints the chain estimate (see CHAIN_OPS) of ``visits`` dependent row
+    visits beside the roofline bound."""
+    if not clock_mhz:
+        print("estimate of the row-visit chain: not computed (no SM clock reading)", flush=True)
+        return
+    est = visits * CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+    print(f"estimate, not measured: a chain of {visits} dependent row visits x "
+          f"{CHAIN_OPS * FP32_LATENCY_CYCLES} cycles (assumed fp32 latency, shared-memory "
+          f"round trips left out) at the reported {clock_mhz:.0f} MHz -> {est:.4f} ms, "
+          f"beside the roofline bound {bound_ms:.6g} ms", flush=True)
+
+
+def sweep_visits(meta, n_iters):
+    """Dependent row visits per env of a kernel #1 or #3 call: every row,
+    and the push pass's visit of each contact normal row, each iteration."""
+    return n_iters * sum(1 + (pslot >= 0) for _a, _b, _k, _p, _s, pslot, *_ in meta.rows)
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls (CUDA
     events, after one warm-up call)."""
@@ -312,15 +375,7 @@ def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
                                        flops)
     print(f"bound: {nbytes / 1e3:.1f} kB, {flops / 1e6:.3f} MFLOP -> "
           f"{bound_ms * 1e3:.4f} us ({bound_by})", flush=True)
-    visits = n_iters * rows.shape[1]
-    if clock_mhz:
-        print(f"estimate, not measured: a chain of {visits} dependent row visits x "
-              f"{CHAIN_OPS * FP32_LATENCY_CYCLES} cycles (assumed fp32 latency, shared-memory "
-              f"round trips left out) at the reported {clock_mhz:.0f} MHz -> "
-              f"{visits * CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e3):.4f} ms",
-              flush=True)
-    else:
-        print("estimate of the row-visit chain: not computed (no SM clock reading)", flush=True)
+    print_chain(n_iters * rows.shape[1], clock_mhz, bound_ms)
     if not cpu:
         times["ms"] = cuda_ms(lambda: sf.solver_sweep(*full_in), 20)
         times["push_ms"] = cuda_ms(lambda: sf.solver_sweep(*push_in), 20)
@@ -702,11 +757,12 @@ def envlast_errors(out, ref):
     return res
 
 
-def envlast_kernel_check(args, dev, cpu, n_envs, card):
+def envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz):
     """Phase 12: the env-last fat-row sweep against its plain version on
     all envs of both input sets of :func:`envlast_inputs` (the first also
     timed, CUDA events); each output must pass :func:`envlast_errors`,
-    padding rows keep their impulses and the push pass moves bodies."""
+    padding rows keep their impulses and the push pass moves bodies. Prints
+    the launch plan and the chain estimate beside the bound."""
     import torch
 
     from evomotion_tpu_torch.kernels import sweep_envlast as se
@@ -714,7 +770,7 @@ def envlast_kernel_check(args, dev, cpu, n_envs, card):
     t0 = phase("envlast kernel check")
     m, meta, sets = envlast_inputs(args.seed, n_envs, dev)
     n_iters = m.n_iterations
-    n_full = meta.meta_i.shape[0]
+    n_full = len(meta.rows)
     rows = sets["prof_step rows"][0]
     print(f"rows {tuple(rows.shape)} ({n_full} visited), vel6 ({m.n_bodies * 6}, {n_envs}), "
           f"iters {n_iters}", flush=True)
@@ -745,15 +801,21 @@ def envlast_kernel_check(args, dev, cpu, n_envs, card):
     inp = sets["prof_step rows"]
     out = (inp[1], inp[2], inp[1])  # the outputs' shapes, for the bytes written
     flops = sweep_flops(rows_with_push(meta), FAT_OPS, n_iters, n_envs)
-    bound_ms, bound_by, nbytes = bound((*inp, meta.meta_i, meta.mu, *out), flops)
+    bound_ms, bound_by, nbytes = bound((*inp, meta.table, *out), flops)
     print(f"bound: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms "
           f"({bound_by})", flush=True)
+    print_chain(sweep_visits(meta, n_iters), clock_mhz, bound_ms)
+    launch = None
     if not cpu:
+        pl = se.KERNEL.plan_for(rows, inp[1], meta)
+        launch = launch_info(se.KERNEL, pl, n_envs,
+                             torch.cuda.get_device_properties(dev).multi_processor_count,
+                             f"kernelILi{pl.envs}E", "envlast kernel")
         print(f"envlast kernel {times['ms']:.3f} ms/call, plain version {times['plain_ms']:.1f} "
               f"ms/call, at B={n_envs} on prof_step's rows (CUDA events) [{card}]", flush=True)
     done("envlast kernel check", t0)
     return {"err": max(errs), "rel_err": max(rel), "times": times, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "launch": launch}
 
 
 def run_tool(module, argv, label):
@@ -887,7 +949,8 @@ def main(argv=None):
         e.step(state, action, gen)
         cap.armed = False
         captured[label] = cap.inputs
-    errs, times = {}, {}
+    errs, times, plans = {}, {}, {}
+    n_sms = None if cpu else torch.cuda.get_device_properties(dev).multi_processor_count
     for label, inp in captured.items():
         row_j, row_s, vel6, lam0, iinv9, meta, n_iters = inp
         print(f"{label}: rows {tuple(row_j.shape)} {row_j.dtype}, vel6 {tuple(vel6.shape)}, "
@@ -898,36 +961,37 @@ def main(argv=None):
             out = sp.solver_sweep_envlast_slim(*inp)
             torch.cuda.synchronize()
         errs[label] = slim_check(inp, out, n_cmp, label)
-        if label == "bf16":
-            flops = sweep_flops(rows_with_push(meta), SLIM_OPS, n_iters, row_j.shape[-1])
-            bound_ms, bound_by, nbytes = bound(
-                (row_j, row_s, vel6, lam0, iinv9, meta.meta_i, meta.meta_f, *out), flops)
-            print(f"bound: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> "
-                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-            if not cpu:
-                # kernel time: CUDA events around repeated launches (warm)
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True)
-                reps = 10
-                start.record()
-                for _ in range(reps):
-                    sp.solver_sweep_envlast_slim(*inp)
-                end.record()
-                torch.cuda.synchronize()
-                times["ms"] = start.elapsed_time(end) / reps
-                # plain version at the same full-width inputs, once
-                start.record()
-                full = sp.sweep_plain(*inp)
-                end.record()
-                torch.cuda.synchronize()
-                times["plain_ms"] = start.elapsed_time(end)
-                full_err = max_err(out, full)
-                print(f"bf16: kernel {times['ms']:.3f} ms/call, plain version "
-                      f"{times['plain_ms']:.1f} ms/call, at B={row_j.shape[-1]}; "
-                      f"max |kernel - plain| over all envs {full_err:.3e}", flush=True)
-                if not full_err <= TOL:
-                    fail(f"sweep kernel disagrees with its plain version on all envs: {full_err}")
-                errs["bf16_all"] = full_err
+        if not cpu:
+            pl = sp.KERNEL.plan_for(row_j, vel6, meta)
+            jt = "13__nv_bfloat16" if label == "bf16" else "f"
+            plans[label] = launch_info(sp.KERNEL, pl, row_j.shape[-1], n_sms,
+                                       f"kernelI{jt}Li{pl.envs}E", f"sweep kernel ({label} J)")
+        if label != "bf16":
+            continue
+        flops = sweep_flops(rows_with_push(meta), SLIM_OPS, n_iters, row_j.shape[-1])
+        bound_ms, bound_by, nbytes = bound(
+            (row_j, row_s, vel6, lam0, iinv9, meta.table, *out), flops)
+        print(f"bound: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP -> "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        print_chain(sweep_visits(meta, n_iters), clock_mhz, bound_ms)
+        if cpu:
+            continue
+        # kernel time: CUDA events around repeated launches (warm)
+        times["ms"] = cuda_ms(lambda: sp.solver_sweep_envlast_slim(*inp), 10)
+        # plain version at the same full-width inputs, once
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        full = sp.sweep_plain(*inp)
+        end.record()
+        torch.cuda.synchronize()
+        times["plain_ms"] = start.elapsed_time(end)
+        full_err = max_err(out, full)
+        print(f"bf16: kernel {times['ms']:.3f} ms/call, plain version "
+              f"{times['plain_ms']:.1f} ms/call, at B={row_j.shape[-1]}; "
+              f"max |kernel - plain| over all envs {full_err:.3e}", flush=True)
+        if not full_err <= TOL:
+            fail(f"sweep kernel disagrees with its plain version on all envs: {full_err}")
+        errs["bf16_all"] = full_err
     done("kernel check", t0)
 
     # ---- 4. one step on the card against the same step on the CPU ----
@@ -968,7 +1032,7 @@ def main(argv=None):
     perenv_step_check(fat, dev, cpu)
     sched_fat_err = perenv_groups_check(args, dev, cpu, params, fat_cap)
     seq = sequential_run(args, dev, cpu, card, cap, fat_cap)
-    envlast = envlast_kernel_check(args, dev, cpu, n_envs, card)
+    envlast = envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz)
     prof = profilers(dev, cpu)
 
     # ---- 14. kernels line and last line ----
@@ -990,6 +1054,8 @@ def main(argv=None):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "launch": plans.get("bf16"),
+        "launch_f32": plans.get("f32"),
     }
     fat_kern = {
         "name": "solver_sweep",
@@ -1026,6 +1092,7 @@ def main(argv=None):
         "bound_ms": envlast["bound_ms"],
         "bound_by": envlast["bound_by"],
         "library_ms": None,
+        "launch": envlast["launch"],
     }
     print(json.dumps({"kernels": [kern, fat_kern, envlast_kern]}), flush=True)
     if cpu:

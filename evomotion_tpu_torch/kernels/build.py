@@ -1,9 +1,9 @@
 """Build a CUDA source of ``csrc/`` into a shared library with a plain C
 interface, at first use, with ``nvcc``.
 
-The library is named by a hash of its source and the flags, written under a
-temporary name and renamed into place, so a build cut off midway leaves no
-lock and no partial library. Libraries go to ``kernels/build/`` (listed in
+The library is named by a hash of its source, the headers of ``csrc/`` and
+the flags, written under a temporary name and renamed into place, so a build
+cut off midway leaves no lock and no partial library. Libraries go to ``kernels/build/`` (listed in
 ``.gitignore``). Nothing here runs at import: the CPU tests import every
 module, and the CPU has no ``nvcc``.
 """
@@ -33,6 +33,8 @@ class NvccLibrary:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:

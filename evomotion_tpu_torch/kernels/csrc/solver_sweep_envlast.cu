@@ -20,177 +20,230 @@
 // The TPU wrapper accepts `groups` but this TPU kernel ignores them (it walks
 // every row of a chunk one at a time), so there is no groups mode here.
 //
-// Layout: every array is env-LAST ([rows, cols, B]), so thread `env` reading
-// element (r, c) touches address (r * cols + c) * B + env and neighbouring
-// threads read neighbouring addresses (coalesced). One thread walks one env.
-// Its body velocities and push velocities sit in shared memory (2 * NB * 6
-// floats per thread, [k][thread] so a warp hits 32 distinct banks: 64.5 kB
-// for 32 envs of the 42-body spider, above the 48 kB default, so the launch
-// opts in); impulses and push impulses stay in device memory, in the same
-// coalesced layout. Any B: the last block's spare threads return at once.
-//
-// What bounds it on an H100: counted as the contract counts it (each input
+// What bounds it on an H100. Counted as the contract counts it (each input
 // read once), a spider call at B=2048 (1,920 padded rows) moves ~0.49 GB and
-// does ~2.6 GFLOP of fp32 work: ~0.15 ms at 3.35 TB/s, more than the ~0.04 ms
-// the operations need at 67 TFLOP/s. This simple design is far from that:
-// the rows do not fit the 50 MB L2, so they are streamed from device memory
-// once per solver iteration, and with one thread per env only B threads are
-// in flight, so each row visit waits out its loads. Row prefetch, several threads per env
-// and rows kept across iterations are left for the PRs that make it fast.
+// does ~2.6 GFLOP of fp32 work: ~0.15 ms at 3.35 TB/s, more than the ~0.04
+// ms the operations need at 67 TFLOP/s. This design streams the rows once
+// per iteration (~0.45 GB each, ~1.3 ms of device-memory time over 10
+// iterations), but what bounds it is the dependent chain of 18,960 row
+// visits per env plus the push pass's 5,480; and, for a design that keeps
+// the chain's data on chip, the shared memory of one SM.
+//
+// What this design does (envlast_ring.cuh): velocities, push velocities,
+// impulses and push impulses sit in shared memory for the whole call, as
+// the TPU kernel keeps them in VMEM (11,840 B per env of the spider); a
+// producer warp streams the 29-float rows ([8*29][E] per stage, with the
+// rows' block of the metadata table) through a ring of 8-row stages by TMA,
+// or by plain loads where B is not a multiple of 4; the consumer warp runs
+// 2 threads per env (body A, body B) and reads each row one row ahead of
+// the chain. E = 16 envs (128 blocks at B=2048, one per SM) leaves room for
+// 2 stages of 15,104 B; the wrapper's planner (kernels/sweep_envlast.py
+// `plan`) takes fewer envs per block where a row set needs more
+// (prof_kernel's 2,048-row contact case: 8). Each E a plan can take (16,
+// 8, 4, 2, 1) has its own instance, with E a constant.
+//
+// What is left: the chain and what the one consumer warp per SM issues
+// beside it (3.5-3.9 ms per spider call at B=2048 on an H100 at 700 W,
+// ~6-7x an estimate of the chain's fp32 latency alone); rows that would
+// stay in shared memory across iterations do not fit beside the resident
+// arrays.
 //
 // Plain C interface, built by nvcc into a shared library and loaded with
 // ctypes (evomotion_tpu_torch/kernels/sweep_envlast.py).
 
-#include <cuda_runtime.h>
+#include "envlast_ring.cuh"
 
 namespace {
 
-constexpr int kRowF = 29;
-constexpr int kDva = 12, kDvb = 18, kRhs = 24, kLo = 25, kHi = 26, kIe = 27, kRhsP = 28;
-constexpr int kMetaI = 6;  // ia6, ib6, kind, parent, skip_b, push_slot
-constexpr int kJoint = 0;
-constexpr int kNormal = 1;
-constexpr int kThreads = 32;
+using namespace ring;
 
-// clamp that keeps a NaN candidate NaN (jnp.clip / torch.clamp semantics)
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  x = x < lo ? lo : x;
-  return x > hi ? hi : x;
+constexpr int kRowF = 29;
+constexpr int kDva = 12, kRhs = 24, kLo = 25, kHi = 26, kIe = 27, kRhsP = 28;
+// metadata words per row (kernels/ring.py stage_table): body A, body B or -1
+// (skip_b), kind, bounding row, push slot or -1, 0 | mu, 0: two 16-byte words
+constexpr int kMeta = 8;
+
+// bytes of one stage: the row box and the metadata, each aligned for TMA
+inline size_t stage_bytes(int envs) {
+  return align_up((size_t)kStageRows * kRowF * envs * 4, kAlign) +
+         align_up((size_t)kStageRows * kMeta * 4, kAlign);
 }
 
-__global__ void __launch_bounds__(kThreads) solver_sweep_envlast_kernel(
-    const float* __restrict__ rows,     // [nr_pad, 29, B]
-    const float* __restrict__ vel_in,   // [nb6, B]
-    const float* __restrict__ lam_in,   // [nr_pad, B]
-    const int* __restrict__ meta_i,     // [n_rows, 6]
-    const float* __restrict__ mu,       // [n_rows]
-    float* __restrict__ vel_out,        // [nb6, B]
-    float* __restrict__ lam_out,        // [nr_pad, B]
-    float* __restrict__ push_out,       // [nb6, B]
-    float* __restrict__ plam,           // [n_push, B] scratch
-    int B, int nb6, int nr_pad, int n_rows, int n_iters, int n_push) {
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int env = blockIdx.x * kThreads + t;
-  if (env >= B) return;  // no block-wide barrier below
-  float* v = smem;                    // [nb6][kThreads]
-  float* pv = smem + nb6 * kThreads;  // [nb6][kThreads]
+struct Args {
+  const float* rows;    // [nr_pad, 29, B]
+  const float* vel_in;  // [nb6, B]
+  const float* lam_in;  // [nr_pad, B]
+  const int* table;     // [ceil8(n_rows), 8]: see kMeta
+  float* vel_out;       // [nb6, B]
+  float* lam_out;       // [nr_pad, B]
+  float* push_out;      // [nb6, B]
+  int B, nb, nr_pad, n_rows, n_iters, n_push, envs, stages, use_tma;
+  size_t stage_bytes, row_box;  // stage layout: rows at 0, meta at row_box
+};
 
-  for (int k = 0; k < nb6; ++k) {
-    v[k * kThreads + t] = vel_in[(size_t)k * B + env];
-    pv[k * kThreads + t] = 0.f;
+// The consumer thread's view of a stage: its half of a row (J and dv of its
+// body), the row's scalars and metadata, and where the row's loads and
+// stores go.
+template <int E>
+struct Reader {
+  size_t row_box;    // the metadata's offset in a stage
+  int e, side, nb;
+
+  __device__ __forceinline__ void read(Row& w, const unsigned char* st, int rr, int r) const {
+    const float* x = reinterpret_cast<const float*>(st) + rr * kRowF * E + e;
+    const int4* mi = reinterpret_cast<const int4*>(st + row_box) + rr * (kMeta / 4);
+    const int4 m0 = mi[0], m1 = mi[1];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      w.j[c] = x[(side * 6 + c) * E];
+      w.dv[c] = x[(kDva + side * 6 + c) * E];
+    }
+    w.rhs = x[kRhs * E];
+    w.ie = x[kIe * E];
+    w.rhs_push = x[kRhsP * E];
+    w.mu = __int_as_float(m1.z);
+    set_kind(w, m0.z, x[kLo * E], x[kHi * E]);
+    w.both = m0.y >= 0;
+    w.push = m1.x >= 0;
+    w.vo = (side == 0 ? m0.x : w.both ? m0.y : nb) * E + e;
+    w.lam_at = r * E + e;
+    w.par_at = m0.w * E + e;
+    w.plam_at = (w.push ? m1.x : 0) * E + e;
   }
-  for (int r = 0; r < nr_pad; ++r) lam_out[(size_t)r * B + env] = lam_in[(size_t)r * B + env];
-  for (int p = 0; p < n_push; ++p) plam[(size_t)p * B + env] = 0.f;
+};
 
-  for (int it = 0; it < n_iters; ++it) {
-    for (int r = 0; r < n_rows; ++r) {
-      const int* mi = meta_i + r * kMetaI;
-      const int ia6 = __ldg(mi + 0), ib6 = __ldg(mi + 1), kind = __ldg(mi + 2);
-      const int parent = __ldg(mi + 3), skip_b = __ldg(mi + 4), pslot = __ldg(mi + 5);
+// E: envs per block, the plan's (a.envs), as a constant
+template <int E>
+__global__ void __launch_bounds__(kThreads, 1)
+    solver_sweep_envlast_kernel(const Args a, const __grid_constant__ CUtensorMap tm_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = a.nb;
+  const int env0 = blockIdx.x * E;
+  Ring ring;
+  Resident s;
+  carve(smem, ring, s, a.stages, a.stage_bytes, nb, a.n_rows, a.n_push, E);
+  load_resident(s, a.vel_in, a.lam_in, a.lam_out, nb, a.nr_pad, a.n_rows, a.n_push, a.B, env0);
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int n_chunks = (a.n_rows + kStageRows - 1) / kStageRows;
 
-      float x[kRowF];
-      const float* xr = rows + (size_t)r * kRowF * B + env;
-#pragma unroll
-      for (int c = 0; c < kRowF; ++c) x[c] = __ldg(xr + (size_t)c * B);
-
-      float va[6], vb[6];
-      float jv = 0.f;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        va[c] = v[(ia6 + c) * kThreads + t];
-        jv += x[c] * va[c];
-      }
-      if (!skip_b) {
-        float jv_b = 0.f;
-#pragma unroll
-        for (int c = 0; c < 6; ++c) {
-          vb[c] = v[(ib6 + c) * kThreads + t];
-          jv_b += x[6 + c] * vb[c];
-        }
-        jv += jv_b;
-      }
-      const float ie = x[kIe];
-
-      float* lam_r = lam_out + (size_t)r * B + env;
-      const float old = *lam_r;
-      const float cand = old + (x[kRhs] - jv) * ie;
-      float nl;
-      if (kind == kJoint) {
-        nl = clip(cand, x[kLo], x[kHi]);
-      } else if (kind == kNormal) {
-        nl = cand < 0.f ? 0.f : cand;
-      } else {
-        const float lim = __ldg(mu + r) * lam_out[(size_t)parent * B + env];
-        nl = clip(cand, -lim, lim);
-      }
-      const float d = nl - old;
-      *lam_r = nl;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) v[(ia6 + c) * kThreads + t] = va[c] + x[kDva + c] * d;
-      if (!skip_b) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) v[(ib6 + c) * kThreads + t] = vb[c] + x[kDvb + c] * d;
-      }
-
-      if (pslot >= 0) {
-        float pa[6], pb[6], jvp = 0.f;
-#pragma unroll
-        for (int c = 0; c < 6; ++c) {
-          pa[c] = pv[(ia6 + c) * kThreads + t];
-          jvp += x[c] * pa[c];
-        }
-        if (!skip_b) {
-          float jvp_b = 0.f;
-#pragma unroll
-          for (int c = 0; c < 6; ++c) {
-            pb[c] = pv[(ib6 + c) * kThreads + t];
-            jvp_b += x[6 + c] * pb[c];
+  if (threadIdx.x >= 32) {  // producer warp
+    const unsigned tx = kStageRows * (kRowF * sizeof(float) * E + kMeta * 4);
+    for (int it = 0; it < a.n_iters; ++it) {
+      for (int c = 0; c < n_chunks; ++c) {
+        bar_wait(&ring.empty[ring.slot], ring.phase ^ 1u);
+        unsigned char* st = ring.stage();
+        uint64_t* full = &ring.full[ring.slot];
+        const int row0 = c * kStageRows;
+        int* mt = reinterpret_cast<int*>(st + a.row_box);
+        const int* table = a.table + row0 * kMeta;
+        if (a.use_tma) {
+          if (lane == 0) {
+            bar_arrive_tx(full, tx);
+            tma_load_2d(st, &tm_rows, env0, row0 * kRowF, full);
+            bulk_load(mt, table, kStageRows * kMeta * 4, full);
+          } else {
+            bar_arrive(full);
           }
-          jvp += jvp_b;
+        } else {
+          copy_box(reinterpret_cast<unsigned*>(st), reinterpret_cast<const unsigned*>(a.rows),
+                   row0, kRowF, a.nr_pad, a.B, env0, E, lane);
+          copy_words(mt, table, kStageRows * kMeta, lane);
+          bar_arrive(full);
         }
-        float* pl_r = plam + (size_t)pslot * B + env;
-        const float pold = *pl_r;
-        float pnew = pold + (x[kRhsP] - jvp) * ie;
-        pnew = pnew < 0.f ? 0.f : pnew;
-        const float dp = pnew - pold;
-        *pl_r = pnew;
-#pragma unroll
-        for (int c = 0; c < 6; ++c) pv[(ia6 + c) * kThreads + t] = pa[c] + x[kDva + c] * dp;
-        if (!skip_b) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) pv[(ib6 + c) * kThreads + t] = pb[c] + x[kDvb + c] * dp;
-        }
+        ring.advance();
       }
     }
+    return;
   }
 
-  for (int k = 0; k < nb6; ++k) {
-    vel_out[(size_t)k * B + env] = v[k * kThreads + t];
-    push_out[(size_t)k * B + env] = pv[k * kThreads + t];
-  }
+  // consumer warp
+  const int e = lane % E;
+  const Reader<E> rd{a.row_box, e, (lane / E) & 1, nb};
+  consume(ring, rd, s, a.n_rows, a.n_iters);
+  store_resident(s, a.vel_out, a.push_out, a.lam_out, nb, a.n_rows, a.B, env0, lane);
 }
+
+template <int E>
+int launch(const Args& a, const CUtensorMap& tm, int smem, cudaStream_t stream) {
+  auto kern = solver_sweep_envlast_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(a.B + E - 1) / E, kThreads, smem, stream>>>(a, tm);
+  return (int)cudaGetLastError();
+}
+
+// the card's resident blocks per SM of the instance for E at `smem` bytes,
+// or a negative CUDA error code
+template <int E>
+int occupancy(int smem) {
+  auto kern = solver_sweep_envlast_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// Launch on `stream`, 32 envs per block; returns the CUDA error code of the
-// launch (0 on success).
+// Shared-memory bytes of a launch plan (the wrapper's planner sums the same).
+extern "C" long long solver_sweep_envlast_smem_bytes(int envs, int stages, int nb6, int n_rows,
+                                                     int n_push) {
+  return (long long)smem_bytes(envs, stages, stage_bytes(envs), nb6, n_rows, n_push, 0);
+}
+
+// Launch on `stream` with the wrapper's plan: `envs` envs per block,
+// `stages` ring stages, `smem` bytes (must equal the plan's sum), rows by TMA
+// where `use_tma` (B and the box width a multiple of 4 envs, the rows
+// 16-byte aligned). Returns the CUDA error code of the launch (0 on success;
+// cudaErrorInvalidValue for a plan or layout it does not take).
 extern "C" int solver_sweep_envlast_launch(
-    const void* rows, const void* vel_in, const void* lam_in, const void* meta_i,
-    const void* mu, void* vel_out, void* lam_out, void* push_out, void* plam, int B,
-    int nb6, int nr_pad, int n_rows, int n_iters, int n_push, void* stream) {
-  const size_t smem = 2 * (size_t)nb6 * kThreads * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      solver_sweep_envlast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  solver_sweep_envlast_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<const float*>(vel_in),
-      static_cast<const float*>(lam_in), static_cast<const int*>(meta_i),
-      static_cast<const float*>(mu), static_cast<float*>(vel_out),
-      static_cast<float*>(lam_out), static_cast<float*>(push_out),
-      static_cast<float*>(plam), B, nb6, nr_pad, n_rows, n_iters, n_push);
-  return (int)cudaGetLastError();
+    const void* rows, const void* vel_in, const void* lam_in, const void* table, void* vel_out,
+    void* lam_out, void* push_out, int B, int nb6, int nr_pad, int n_rows, int n_iters,
+    int n_push, int envs, int stages, int smem, int use_tma, void* stream) {
+  if (!valid_plan(envs, stages) || B < 1 || nb6 < 6 || nb6 % 6 || n_rows > nr_pad ||
+      n_push < 1 ||
+      (long long)smem != solver_sweep_envlast_smem_bytes(envs, stages, nb6, n_rows, n_push))
+    return (int)cudaErrorInvalidValue;
+  if (use_tma && (B % 4 || envs % 4 || !aligned16(rows) || !aligned16(table)))
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.rows = static_cast<const float*>(rows);
+  a.vel_in = static_cast<const float*>(vel_in);
+  a.lam_in = static_cast<const float*>(lam_in);
+  a.table = static_cast<const int*>(table);
+  a.vel_out = static_cast<float*>(vel_out);
+  a.lam_out = static_cast<float*>(lam_out);
+  a.push_out = static_cast<float*>(push_out);
+  a.B = B;
+  a.nb = nb6 / 6;
+  a.nr_pad = nr_pad;
+  a.n_rows = n_rows;
+  a.n_iters = n_iters;
+  a.n_push = n_push;
+  a.envs = envs;
+  a.stages = stages;
+  a.use_tma = use_tma;
+  a.row_box = align_up((size_t)kStageRows * kRowF * envs * 4, kAlign);
+  a.stage_bytes = stage_bytes(envs);
+  CUtensorMap tm{};
+  if (use_tma) {
+    const cudaError_t err = encode_rows(&tm, rows, 4, nr_pad, kRowF, B, envs);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_envs(envs, [&](auto e) { return launch<decltype(e)::value>(a, tm, smem, st); });
+}
+
+// Resident blocks per SM of a plan on the current card, as the CUDA runtime
+// reckons them (cudaOccupancyMaxActiveBlocksPerMultiprocessor); negative on
+// an error.
+extern "C" int solver_sweep_envlast_blocks_per_sm(int envs, int smem) {
+  if (!valid_plan(envs, 2)) return -(int)cudaErrorInvalidValue;
+  return with_envs(envs, [&](auto e) { return occupancy<decltype(e)::value>(smem); });
 }
 
 extern "C" int solver_sweep_envlast_max_smem_per_block() {

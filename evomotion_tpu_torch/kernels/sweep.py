@@ -18,7 +18,8 @@ which the check makes equal.
 
 - CUDA tensors: launches the hand-written kernel (built by ``nvcc`` into a
   shared library with a plain C interface at first use, loaded with ctypes)
-  or raises. There is no fallback.
+  with the launch :func:`plan` of the shapes, or raises. There is no
+  fallback.
 - CPU tensors: runs :func:`sweep_plain`, a loop over rows in which each step
   works on ``[B]`` vectors. It repeats the kernel's arithmetic and is the
   reference the kernel is held against on the card.
@@ -27,6 +28,15 @@ Row layout (``ROW_J`` / ``ROW_S``): J columns ``[NR_pad, 12, B]`` (bf16 or
 f32: a_lin, a_ang, b_lin, b_ang) and f32 scalars ``[NR_pad, 4, B]``
 (rhs, lo, hi, rhs_push). Minv*J^T and 1/(J Minv J^T) are recomputed per row
 from the world inverse inertia ``iinv9 [NB*9, B]`` and static inverse masses.
+
+Launch plan (:func:`plan`, see :mod:`.ring`): the kernel keeps each env's
+velocities and push velocities (one spare body each), impulses of the
+visited rows, push impulses and inverse-inertia table in shared memory
+(``2 * (nb6 + 6) + n_rows + n_push + 9 * nb`` floats), and streams the rows
+through a ring of 8-row stages (J box, scalar box, the rows' block of
+``SweepMeta.table``, and 1/eff, which a third warp of the block adds). The
+spider at B=2048 gets 16 envs per block (128 blocks), 3 stages with bf16 J,
+2 with f32 J.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import ring
 from .build import NvccLibrary
 
 ROW_J = 12
@@ -48,7 +59,27 @@ KIND_JOINT = 0  # bounds streamed per env (limit/motor rows are state-dependent)
 KIND_NORMAL = 1  # [0, +inf)
 KIND_FRICTION = 2  # +-mu * lam[parent]
 
-_THREADS = 32  # threads per block in the kernel (one env each)
+_META_WORDS = 12  # per-row words of SweepMeta.table
+_THREADS = 96  # the kernel's block: consumer, producer and 1/eff warps
+
+
+def plan(nb6: int, nr_pad: int, n_rows: int, n_push: int, j_bytes: int,
+         smem_optin: int) -> ring.Plan:
+    """The kernel's launch plan for these shapes (``j_bytes`` 2 for bf16 J,
+    4 for f32) within ``smem_optin`` bytes of shared memory per block;
+    raises ValueError when none fits."""
+    if j_bytes not in (2, 4) or nb6 % 6 or not 0 <= n_rows <= nr_pad or n_push < 1:
+        raise ValueError(f"sweep plan: bad shapes nb6={nb6} nr_pad={nr_pad} "
+                         f"n_rows={n_rows} n_push={n_push} j_bytes={j_bytes}")
+
+    def stage(envs):  # J box, scalar box, metadata, 1/eff box
+        return (ring.align(ring.STAGE_ROWS * ROW_J * envs * j_bytes)
+                + ring.align(ring.STAGE_ROWS * ROW_S * envs * 4)
+                + ring.align(ring.STAGE_ROWS * _META_WORDS * 4)
+                + ring.align(ring.STAGE_ROWS * envs * 4))
+
+    return ring.plan(stage, 2 * (nb6 + 6) + n_rows + n_push + 9 * (nb6 // 6), (j_bytes, 4),
+                     _THREADS, smem_optin, "sweep kernel")
 
 
 def check_groups(groups, idx6_a, idx6_b, parent, skip_b, n_rows: int, chunk: int):
@@ -92,8 +123,9 @@ def check_groups(groups, idx6_a, idx6_b, parent, skip_b, n_rows: int, chunk: int
 class SweepMeta(NamedTuple):
     """Static per-row sweep metadata in the forms both versions take."""
 
-    meta_i: torch.Tensor  # [NR, 6] int32: ia6, ib6, kind, parent, skip_b, push_slot
-    meta_f: torch.Tensor  # [NR, 3] f32: mu, inv_mass_a, inv_mass_b
+    # [ceil8(NR), 12] int32, the kernel's (ring.stage_table): bodies, kind,
+    # bounding row, push slot, and the bits of f32 mu, inv_mass_a, inv_mass_b
+    table: torch.Tensor
     rows: tuple  # per-row Python tuples of the same fields (plain version)
     n_push: int  # push-impulse slots (contact normal rows), at least 1
     groups: tuple | None = None  # checked ((start, size), ...); None: one row at a time
@@ -145,8 +177,7 @@ def make_sweep_meta(inv_mass, idx6_a, idx6_b, parent, mu, kind, skip_b,
         for (a, b, k, p, s, ps), (m, ma, mb) in zip(mi.tolist(), mf.tolist())
     )
     return SweepMeta(
-        meta_i=torch.as_tensor(mi, device=device),
-        meta_f=torch.as_tensor(mf, device=device),
+        table=torch.as_tensor(ring.stage_table(mi, mf, _META_WORDS), device=device),
         rows=rows,
         n_push=max(int(normal.sum()), 1),
         groups=groups,
@@ -254,11 +285,13 @@ class SweepKernel(NvccLibrary):
 
     ``launches`` is a plain integer that :meth:`launch` raises by one per
     kernel launch and nothing else touches, so a run can show that its main
-    path went through the kernel."""
+    path went through the kernel. ``last`` holds the plan and copy path of
+    the latest launch."""
 
     def __init__(self):
         super().__init__("sweep_envlast_slim.cu")
         self.launches = 0
+        self.last = None
         self._lib = None
 
     def lib(self):
@@ -267,37 +300,55 @@ class SweepKernel(NvccLibrary):
             p = ctypes.c_void_p
             i = ctypes.c_int
             lib.sweep_envlast_slim_launch.argtypes = [
-                p, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
+                p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
             ]
             lib.sweep_envlast_slim_launch.restype = ctypes.c_int
+            lib.sweep_envlast_slim_smem_bytes.argtypes = [i, i, i, i, i, i]
+            lib.sweep_envlast_slim_smem_bytes.restype = ctypes.c_longlong
+            lib.sweep_envlast_slim_blocks_per_sm.argtypes = [i, i, i]
+            lib.sweep_envlast_slim_blocks_per_sm.restype = ctypes.c_int
             lib.sweep_envlast_slim_max_smem_per_block.argtypes = []
             lib.sweep_envlast_slim_max_smem_per_block.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
+    def plan_for(self, row_j, vel6, meta: SweepMeta) -> ring.Plan:
+        """The launch plan of these inputs on the current card."""
+        return plan(vel6.shape[0], row_j.shape[0], len(meta.rows), meta.n_push,
+                    row_j.element_size(), self.lib().sweep_envlast_slim_max_smem_per_block())
+
+    def blocks_per_sm(self, pl: ring.Plan) -> int:
+        """Resident blocks per SM of the plan's kernel instance on the
+        current card, as the CUDA runtime reckons them."""
+        n = self.lib().sweep_envlast_slim_blocks_per_sm(int(pl.elt_bytes[0] == 2), pl.envs,
+                                                        pl.smem_bytes)
+        if n < 0:
+            raise RuntimeError(f"sweep kernel occupancy query failed: cudaError {-n} ({pl})")
+        return n
+
     def launch(self, row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta, n_iters: int):
         nr_pad, _, b = row_j.shape
         nb6 = vel6.shape[0]
-        n_rows = meta.meta_i.shape[0]
+        n_rows = len(meta.rows)
         lib = self.lib()
-        smem = 2 * nb6 * _THREADS * 4
-        if smem > lib.sweep_envlast_slim_max_smem_per_block():
-            raise ValueError(f"sweep kernel: {nb6 // 6} bodies need {smem} B of shared memory")
+        pl = self.plan_for(row_j, vel6, meta)
+        copy = ("plain" if any(t.data_ptr() % 16 for t in (row_j, row_s, meta.table))
+                else pl.copy(b))
         vel_out = torch.empty_like(vel6)
         lam_out = torch.empty_like(lam0)
         push_out = torch.empty_like(vel6)
-        plam = torch.empty((meta.n_push, b), dtype=torch.float32, device=vel6.device)
         err = lib.sweep_envlast_slim_launch(
             row_j.data_ptr(), int(row_j.dtype == torch.bfloat16), row_s.data_ptr(),
-            vel6.data_ptr(), lam0.data_ptr(), iinv9.data_ptr(),
-            meta.meta_i.data_ptr(), meta.meta_f.data_ptr(),
-            vel_out.data_ptr(), lam_out.data_ptr(), push_out.data_ptr(), plam.data_ptr(),
+            vel6.data_ptr(), lam0.data_ptr(), iinv9.data_ptr(), meta.table.data_ptr(),
+            vel_out.data_ptr(), lam_out.data_ptr(), push_out.data_ptr(),
             b, nb6, nr_pad, n_rows, n_iters, meta.n_push,
+            pl.envs, pl.stages, pl.smem_bytes, int(copy == "tma"),
             torch.cuda.current_stream(vel6.device).cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"sweep kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"sweep kernel launch failed: cudaError {err} ({pl}, {copy})")
         self.launches += 1
+        self.last = (pl, copy)
         return vel_out, lam_out, push_out
 
 
@@ -315,8 +366,8 @@ def _check(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta):
         "lam0": (lam0, (nr_pad, b), (torch.float32,)),
         "iinv9": (iinv9, (nb6 // 6 * 9, b), (torch.float32,)),
         "row_j": (row_j, (nr_pad, ROW_J, b), (torch.float32, torch.bfloat16)),
-        "meta_i": (meta.meta_i, (meta.meta_i.shape[0], 6), (torch.int32,)),
-        "meta_f": (meta.meta_f, (meta.meta_i.shape[0], 3), (torch.float32,)),
+        "table": (meta.table, (-(-len(meta.rows) // ring.STAGE_ROWS) * ring.STAGE_ROWS,
+                               _META_WORDS), (torch.int32,)),
     }
     dev = row_j.device
     for name, (t, shape, dtypes) in want.items():
@@ -328,15 +379,15 @@ def _check(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta):
             raise ValueError(f"{name} on {t.device}, row_j on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if nb6 % 6 or meta.meta_i.shape[0] > nr_pad:
-        raise ValueError(f"bad sizes: nb6={nb6}, rows={meta.meta_i.shape[0]} > {nr_pad}")
+    if nb6 % 6 or len(meta.rows) > nr_pad:
+        raise ValueError(f"bad sizes: nb6={nb6}, rows={len(meta.rows)} > {nr_pad}")
 
 
 def solver_sweep_envlast_slim(row_j, row_s, vel6, lam0, iinv9, meta: SweepMeta,
                               n_iters: int):
     """The fused sweep; returns (vel6', lam', push_vel6), all f32 ``[*, B]``.
 
-    Rows ``meta.meta_i.shape[0]`` and beyond (padding) are not visited and
+    Rows ``len(meta.rows)`` and beyond (padding) are not visited and
     keep their ``lam0``. Rows are visited in their order in the arrays, in
     ``meta.groups`` where the meta has them (checked when it was made). On
     CUDA tensors this launches the kernel or raises; on CPU tensors it runs

@@ -17,10 +17,19 @@ dv_b (6), rhs, lo, hi, inv_eff, rhs_push; ``vel6 [NB*6, B]``,
 
 - CUDA tensors: launches the hand-written kernel (built by ``nvcc`` into a
   shared library with a plain C interface at first use, loaded with ctypes)
-  or raises. There is no fallback.
+  with the launch :func:`plan` of the shapes, or raises. There is no
+  fallback.
 - CPU tensors: runs :func:`sweep_envlast_plain`, a loop over rows in which
   each step works on ``[B]`` vectors. It repeats the kernel's arithmetic and
   is the reference the kernel is held against on the card.
+
+Launch plan (:func:`plan`, see :mod:`.ring`): the kernel keeps each env's
+velocities and push velocities (one spare body each), impulses of the
+visited rows and push impulses in shared memory (``2 * (nb6 + 6) + n_rows +
+n_push`` floats) and streams the rows, with their block of
+``EnvlastMeta.table``, through a ring of 8-row stages. The spider's full
+sweep at B=2048 gets 16 envs per block (128 blocks) and 2 stages;
+``prof_kernel``'s 2,048-row contact case gets 8 envs per block.
 
 Nothing in the physics step calls it: the profilers of
 :mod:`evomotion_tpu_torch.tools` do, as the JAX package's ``tools/`` do.
@@ -34,19 +43,37 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import ring
 from .build import NvccLibrary
 from .sweep import KIND_NORMAL, clamp_impulse, row_table, run_groups, visit_row
 
 ROW_FP = 29
 _J, _DVA, _DVB, _RHS, _LO, _HI, _IEF, _RHSP = 0, 12, 18, 24, 25, 26, 27, 28
-_THREADS = 32  # threads per block in the kernel (one env each)
+_META_WORDS = 8  # per-row words of EnvlastMeta.table
+_THREADS = 64  # the kernel's block: consumer and producer warps
+
+
+def plan(nb6: int, nr_pad: int, n_rows: int, n_push: int, smem_optin: int) -> ring.Plan:
+    """The kernel's launch plan for these shapes within ``smem_optin`` bytes
+    of shared memory per block; raises ValueError when none fits."""
+    if nb6 % 6 or not 0 <= n_rows <= nr_pad or n_push < 1:
+        raise ValueError(f"envlast sweep plan: bad shapes nb6={nb6} nr_pad={nr_pad} "
+                         f"n_rows={n_rows} n_push={n_push}")
+
+    def stage(envs):
+        return (ring.align(ring.STAGE_ROWS * ROW_FP * envs * 4)
+                + ring.align(ring.STAGE_ROWS * _META_WORDS * 4))
+
+    return ring.plan(stage, 2 * (nb6 + 6) + n_rows + n_push, (4,), _THREADS, smem_optin,
+                     "envlast sweep kernel")
 
 
 class EnvlastMeta(NamedTuple):
     """Static per-row sweep metadata in the forms both versions take."""
 
-    meta_i: torch.Tensor  # [NR, 6] int32: ia6, ib6, kind, parent, skip_b, push_slot
-    mu: torch.Tensor  # [NR] f32 friction coefficient
+    # [ceil8(NR), 8] int32, the kernel's (ring.stage_table): bodies, kind,
+    # bounding row, push slot, and the bits of f32 mu
+    table: torch.Tensor
     rows: tuple  # per-row Python tuples of the same fields and mu (plain version)
     n_push: int  # push-impulse slots (contact normal rows), at least 1
 
@@ -59,7 +86,8 @@ def make_envlast_meta(idx6_a, idx6_b, parent, mu, kind, skip_b, n_rows: int,
     rows = tuple(
         (a, b, k, p, bool(s), ps, m) for (a, b, k, p, s, ps), m in zip(mi.tolist(), mu.tolist())
     )
-    return EnvlastMeta(torch.as_tensor(mi, device=device), torch.as_tensor(mu, device=device),
+    return EnvlastMeta(torch.as_tensor(ring.stage_table(mi, mu[:, None], _META_WORDS),
+                                       device=device),
                        rows, max(int((mi[:, 2] == KIND_NORMAL).sum()), 1))
 
 
@@ -105,11 +133,13 @@ class EnvlastSweepKernel(NvccLibrary):
 
     ``launches`` is a plain integer that :meth:`launch` raises by one per
     kernel launch and nothing else touches, so a run can show that its path
-    went through the kernel."""
+    went through the kernel. ``last`` holds the plan and copy path of the
+    latest launch."""
 
     def __init__(self):
         super().__init__("solver_sweep_envlast.cu")
         self.launches = 0
+        self.last = None
         self._lib = None
 
     def lib(self):
@@ -118,35 +148,53 @@ class EnvlastSweepKernel(NvccLibrary):
             p = ctypes.c_void_p
             i = ctypes.c_int
             lib.solver_sweep_envlast_launch.argtypes = [
-                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
             ]
             lib.solver_sweep_envlast_launch.restype = ctypes.c_int
+            lib.solver_sweep_envlast_smem_bytes.argtypes = [i, i, i, i, i]
+            lib.solver_sweep_envlast_smem_bytes.restype = ctypes.c_longlong
+            lib.solver_sweep_envlast_blocks_per_sm.argtypes = [i, i]
+            lib.solver_sweep_envlast_blocks_per_sm.restype = ctypes.c_int
             lib.solver_sweep_envlast_max_smem_per_block.argtypes = []
             lib.solver_sweep_envlast_max_smem_per_block.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
+    def plan_for(self, rows, vel6, meta: EnvlastMeta) -> ring.Plan:
+        """The launch plan of these inputs on the current card."""
+        return plan(vel6.shape[0], rows.shape[0], len(meta.rows), meta.n_push,
+                    self.lib().solver_sweep_envlast_max_smem_per_block())
+
+    def blocks_per_sm(self, pl: ring.Plan) -> int:
+        """Resident blocks per SM of the plan's kernel instance on the
+        current card, as the CUDA runtime reckons them."""
+        n = self.lib().solver_sweep_envlast_blocks_per_sm(pl.envs, pl.smem_bytes)
+        if n < 0:
+            raise RuntimeError(f"envlast sweep kernel occupancy query failed: cudaError {-n} "
+                               f"({pl})")
+        return n
+
     def launch(self, rows, vel6, lam0, meta: EnvlastMeta, n_iters: int):
         nr_pad, _, b = rows.shape
         nb6 = vel6.shape[0]
         lib = self.lib()
-        smem = 2 * nb6 * _THREADS * 4
-        if smem > lib.solver_sweep_envlast_max_smem_per_block():
-            raise ValueError(f"envlast sweep kernel: {nb6 // 6} bodies need {smem} B of "
-                             "shared memory")
+        pl = self.plan_for(rows, vel6, meta)
+        copy = "plain" if rows.data_ptr() % 16 or meta.table.data_ptr() % 16 else pl.copy(b)
         vel_out = torch.empty_like(vel6)
         lam_out = torch.empty_like(lam0)
         push_out = torch.empty_like(vel6)
-        plam = torch.empty((meta.n_push, b), dtype=torch.float32, device=vel6.device)
         err = lib.solver_sweep_envlast_launch(
-            rows.data_ptr(), vel6.data_ptr(), lam0.data_ptr(), meta.meta_i.data_ptr(),
-            meta.mu.data_ptr(), vel_out.data_ptr(), lam_out.data_ptr(), push_out.data_ptr(),
-            plam.data_ptr(), b, nb6, nr_pad, meta.meta_i.shape[0], n_iters, meta.n_push,
+            rows.data_ptr(), vel6.data_ptr(), lam0.data_ptr(), meta.table.data_ptr(),
+            vel_out.data_ptr(), lam_out.data_ptr(), push_out.data_ptr(),
+            b, nb6, nr_pad, len(meta.rows), n_iters, meta.n_push,
+            pl.envs, pl.stages, pl.smem_bytes, int(copy == "tma"),
             torch.cuda.current_stream(vel6.device).cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"envlast sweep kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"envlast sweep kernel launch failed: cudaError {err} "
+                               f"({pl}, {copy})")
         self.launches += 1
+        self.last = (pl, copy)
         return vel_out, lam_out, push_out
 
 
@@ -159,13 +207,13 @@ def _check(rows, vel6, lam0, meta: EnvlastMeta):
     nr_pad, _, b = rows.shape
     if vel6.dim() != 2 or vel6.shape[0] % 6:
         raise ValueError(f"vel6 must be [NB*6, B], got {tuple(vel6.shape)}")
-    n_rows = meta.meta_i.shape[0]
+    n_rows = len(meta.rows)
     want = {
         "rows": (rows, (nr_pad, ROW_FP, b), torch.float32),
         "vel6": (vel6, (vel6.shape[0], b), torch.float32),
         "lam0": (lam0, (nr_pad, b), torch.float32),
-        "meta_i": (meta.meta_i, (n_rows, 6), torch.int32),
-        "mu": (meta.mu, (n_rows,), torch.float32),
+        "table": (meta.table, (-(-n_rows // ring.STAGE_ROWS) * ring.STAGE_ROWS, _META_WORDS),
+                  torch.int32),
     }
     dev = rows.device
     for name, (t, shape, dtype) in want.items():
@@ -177,14 +225,14 @@ def _check(rows, vel6, lam0, meta: EnvlastMeta):
             raise ValueError(f"{name} on {t.device}, rows on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if n_rows > nr_pad or len(meta.rows) != n_rows:
-        raise ValueError(f"meta has {n_rows} rows ({len(meta.rows)} plain), rows {nr_pad}")
+    if n_rows > nr_pad:
+        raise ValueError(f"meta has {n_rows} rows, rows {nr_pad}")
 
 
 def solver_sweep_envlast(rows, vel6, lam0, meta: EnvlastMeta, n_iters: int):
     """The fused sweep; returns (vel6', lam', push_vel6), all f32 ``[*, B]``.
 
-    Rows ``meta.meta_i.shape[0]`` and beyond (padding) are not visited and
+    Rows ``len(meta.rows)`` and beyond (padding) are not visited and
     keep their ``lam0``. On CUDA tensors this launches the kernel or raises;
     on CPU tensors it runs the plain version."""
     _check(rows, vel6, lam0, meta)

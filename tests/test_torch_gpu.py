@@ -1,6 +1,10 @@
 """Tests of the port's CUDA kernels on the card (marker ``gpu``): the
 three sweeps against their plain versions, kernels #1 and #2 also on
-scheduled rows with their groups.
+scheduled rows with their groups; kernel #1 also on the spider's real rows
+at B = 1, 17 and 256 (a stride TMA cannot take, a ragged last block, TMA),
+kernel #3 also on prof_kernel's 2,048-row contact case (8 envs per block);
+both at every envs per block a plan can take, forced by a smaller opt-in;
+the launch plans' shared-memory sums and occupancy against the kernels'.
 
 They skip where torch sees no card. This file imports no JAX, so it also
 runs on a host where JAX is not installed: ``python -m pytest --noconftest
@@ -9,10 +13,13 @@ chip_smoke.py holds the same kernels against their plain versions at the
 main path's real shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from evomotion_tpu_torch.kernels import sweep as tsp
 from evomotion_tpu_torch.kernels import sweep_envlast as tse
 from evomotion_tpu_torch.kernels import sweep_fat as tsf
@@ -235,5 +242,208 @@ def test_grouped_kernels_match_grouped_plain_on_card():
             for x in (rows[:, s.perm], vel6, lam0[:, s.perm])]
     got = tsf.solver_sweep(*args, m, 3)
     ref = tsf.sweep_fat_plain(*args, m, 3)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+
+SPIDER_B = 256
+
+
+@pytest.fixture(scope="module")
+def spider_sweeps():
+    """Kernel #1's inputs in the first step after a seeded reset of the
+    spider at B=256, and its plain version's outputs on them, for bf16 and
+    f32 J rows, in the canonical and the scheduled order (permuted rows with
+    their groups). Envs are independent, so the outputs of the first b envs
+    are those of a call on the first b envs alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    env = RobotWalk(device=dev)
+    state, _ = env.reset(SPIDER_B, gen)
+    action = torch.rand((SPIDER_B, env.action_size), generator=gen, device=dev) * 2 - 1
+    out = {}
+    for dtype in ("bf16", "f32"):
+        for order in ("canonical", "scheduled"):
+            e = RobotWalk(device=dev)
+            e.model = dataclasses.replace(env.model, row_dtype=dtype, row_order=order)
+            calls, orig = [], tsp.solver_sweep_envlast_slim
+
+            def capture(*a):
+                calls.append([x.clone() if torch.is_tensor(x) else x for x in a])
+                return orig(*a)
+
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(tsp, "solver_sweep_envlast_slim", capture)
+                e.step(state, action, gen)
+            inp = calls[0]
+            assert (inp[5].groups is not None) == (order == "scheduled")
+            out[dtype, order] = inp, tsp.sweep_plain(*inp)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["canonical", "scheduled"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 17, SPIDER_B])
+def test_kernel_matches_plain_on_spider_rows(spider_sweeps, b, dtype, order):
+    """Kernel #1 on the spider's real rows (1,896 rows, 42 bodies, 10
+    iterations: the ring wraps across iterations, friction parents are read
+    from shared memory) against its plain version within chip_smoke.TOL.
+    B=1 and 17 take the plain-load copy path (and 17 a ragged last block),
+    B=256 the TMA path."""
+    inp, ref = spider_sweeps[dtype, order]
+    sub = [x[..., :b].contiguous() if torch.is_tensor(x) else x for x in inp]
+    before = tsp.KERNEL.launches
+    got = tsp.solver_sweep_envlast_slim(*sub)
+    torch.cuda.synchronize()
+    assert tsp.KERNEL.launches == before + 1
+    plan, copy = tsp.KERNEL.last
+    assert copy == ("tma" if b == SPIDER_B else "plain")
+    assert plan.envs == 16 and plan.masked(b) == (15 if b < SPIDER_B else 0)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r[..., :b], atol=chip_smoke.TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_envlast_kernel_matches_plain_on_prof_kernel_contact_rows():
+    """Kernel #3 on prof_kernel's 2,048-row contact case at B=2048 (683
+    push slots: the plan takes 8 envs per block) against its plain version,
+    each output within chip_smoke's TOL and REL_TOL of its own size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.tools import prof_kernel as pk
+
+    dev, nr, b = torch.device("cuda"), 2048, 2048
+    meta = tse.make_envlast_meta(*pk.case_meta("contact", nr, pk.BODIES), nr, dev)
+    rng = np.random.default_rng(0)
+    rows = torch.as_tensor(
+        rng.standard_normal((nr, tse.ROW_FP, b)).astype(np.float32) * 0.01, device=dev)
+    vel = torch.as_tensor(rng.standard_normal((pk.BODIES * 6, b)).astype(np.float32), device=dev)
+    lam = torch.zeros((nr, b), device=dev)
+    got = tse.solver_sweep_envlast(rows, vel, lam, meta, pk.ITERS)
+    plan, copy = tse.KERNEL.last
+    assert plan.envs == 8 and copy == "tma"
+    ref = tse.sweep_envlast_plain(rows, vel, lam, meta, pk.ITERS)
+    for name, err, mag, ok in chip_smoke.envlast_errors(got, ref):
+        assert ok, (name, err, mag)
+
+
+@pytest.mark.gpu
+def test_plans_match_the_kernels_shared_memory_sums():
+    """The wrappers' planners and the kernels sum a plan's shared memory
+    alike (the launch refuses a plan whose bytes differ), at the spider's
+    and prof_kernel's shapes and under smaller opt-ins that force fewer
+    envs or stages; the spider's plans fit this card's opt-in."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    slim, fat = tsp.KERNEL.lib(), tse.KERNEL.lib()
+    optin = slim.sweep_envlast_slim_max_smem_per_block()
+    assert optin == fat.solver_sweep_envlast_max_smem_per_block() >= 232_448
+    for nb6, nr, n_push in ((252, 1896, 548), (252, 2048, 683), (24, 29, 6)):
+        for cap in (optin, 150_000, 60_000):
+            for jb in (2, 4):
+                pl = tsp.plan(nb6, nr, nr, n_push, jb, cap)
+                assert pl.smem_bytes == slim.sweep_envlast_slim_smem_bytes(
+                    pl.envs, pl.stages, jb, nb6, nr, n_push)
+            pl = tse.plan(nb6, nr, nr, n_push, cap)
+            assert pl.smem_bytes == fat.solver_sweep_envlast_smem_bytes(
+                pl.envs, pl.stages, nb6, nr, n_push)
+    # the spider's plans: one block per SM, as the CUDA runtime reckons it on
+    # this card and as the planner's H100 model does
+    for jb in (2, 4):
+        pl = tsp.plan(252, 1920, 1896, 548, jb, optin)
+        assert tsp.KERNEL.blocks_per_sm(pl) == pl.blocks_per_sm() == 1
+    pl = tse.plan(252, 1920, 1896, 548, optin)
+    assert tse.KERNEL.blocks_per_sm(pl) == pl.blocks_per_sm() == 1
+
+
+def optin_for(envs, plan_at, optin):
+    """The largest shared-memory opt-in at or below ``optin``, in steps of
+    128 B, at which ``plan_at(opt_in)`` takes at most ``envs`` envs per block."""
+    cap = optin
+    while plan_at(cap).envs > envs:
+        cap -= 128
+    return cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["canonical", "scheduled"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("b", [17, SPIDER_B])
+@pytest.mark.parametrize("envs", [8, 4, 2, 1])
+def test_kernel_matches_plain_at_fewer_envs_per_block(spider_sweeps, envs, b, dtype, order):
+    """Kernel #1's instances for fewer than 16 envs per block (what the
+    planner gives a model larger than the spider), forced on the spider's
+    real rows by a smaller shared-memory opt-in, against the plain version
+    within chip_smoke.TOL; by TMA where the box is 16-byte wide, else by
+    plain loads."""
+    inp, ref = spider_sweeps[dtype, order]
+    sub = [x[..., :b].contiguous() if torch.is_tensor(x) else x for x in inp]
+    row_j, vel6, meta = sub[0], sub[2], sub[5]
+    lib = tsp.KERNEL.lib()
+    cap = optin_for(envs, lambda c: tsp.plan(vel6.shape[0], row_j.shape[0], len(meta.rows),
+                                             meta.n_push, row_j.element_size(), c),
+                    lib.sweep_envlast_slim_max_smem_per_block())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lib, "sweep_envlast_slim_max_smem_per_block", lambda: cap)
+        got = tsp.solver_sweep_envlast_slim(*sub)
+    torch.cuda.synchronize()
+    plan, copy = tsp.KERNEL.last
+    assert plan.envs == envs
+    assert copy == ("tma" if b == SPIDER_B and envs * row_j.element_size() >= 16 else "plain")
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r[..., :b], atol=chip_smoke.TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("envs", [16, 8, 4, 2, 1])
+def test_kernels_ignore_body_b_of_skip_b_rows(envs):
+    """Both env-last kernels at each envs per block, on the random row sets
+    with non-zero body-B columns on the skip_b rows (which neither version
+    reads), against their plain versions: the two threads of an env must
+    store the same impulses on those rows too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev, b = torch.device("cuda"), 1000
+    rng = np.random.default_rng(7)
+
+    row_j, row_s, vel6, lam0, iinv9, inv_mass, meta = random_rows(2, b)
+    skip = np.array(meta[5].tolist() + [False] * (NR_PAD - N_ROWS))
+    row_j[skip, 6:] = rng.normal(size=row_j[skip, 6:].shape)
+    m = tsp.make_sweep_meta(inv_mass, *meta, N_ROWS, dev)
+    lib = tsp.KERNEL.lib()
+    for jd in (torch.float32, torch.bfloat16):
+        args = [torch.as_tensor(row_j, device=dev).to(jd)] + [
+            torch.as_tensor(x, device=dev) for x in (row_s, vel6, lam0, iinv9)
+        ]
+        cap = optin_for(envs, lambda c: tsp.plan(NB * 6, NR_PAD, N_ROWS, m.n_push,
+                                                 args[0].element_size(), c),
+                        lib.sweep_envlast_slim_max_smem_per_block())
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lib, "sweep_envlast_slim_max_smem_per_block", lambda: cap)
+            got = tsp.solver_sweep_envlast_slim(*args, m, 3)
+        assert tsp.KERNEL.last[0].envs == envs
+        ref = tsp.sweep_plain(*args, m, 3)
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+    rows, vel6, lam0, meta, nr = random_envlast_rows(4, b)
+    skip = np.array(meta[5].tolist())
+    for cols in (slice(6, 12), slice(18, 24)):  # J_b and dv_b
+        rows[:nr][skip, cols] = rng.normal(size=rows[:nr][skip, cols].shape)
+    m = tse.make_envlast_meta(*meta, nr, dev)
+    args = [torch.as_tensor(x, device=dev) for x in (rows, vel6, lam0)]
+    lib = tse.KERNEL.lib()
+    cap = optin_for(envs, lambda c: tse.plan(vel6.shape[0], NR_PAD, nr, m.n_push, c),
+                    lib.solver_sweep_envlast_max_smem_per_block())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lib, "solver_sweep_envlast_max_smem_per_block", lambda: cap)
+        got = tse.solver_sweep_envlast(*args, m, 3)
+    assert tse.KERNEL.last[0].envs == envs
+    ref = tse.sweep_envlast_plain(*args, m, 3)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, atol=1e-4, rtol=0)

@@ -147,3 +147,59 @@ def test_make_meta_rejects_groups_that_break_the_invariant():
         tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu", groups=ok)
     tsp.make_sweep_meta(inv_mass, *s[:6], N_ROWS, "cpu", groups=split, chunk=8)
     tsf.make_fat_meta(*s[:6], "cpu", groups=ok, chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan (pure Python: it runs here)
+# ---------------------------------------------------------------------------
+
+OPTIN = 232_448  # H100: the shared memory one block may opt in to
+
+
+def spider_shapes():
+    """(nb6, n_rows, n_push) of the batched spider step's full sweep."""
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+    from evomotion_tpu_torch.physics import engine as TE
+
+    m = RobotWalk(device="cpu").model
+    fm = TE._solver_meta(m, "full", TE.n_manifold_pairs(m), TE._n_dyn_contacts(m))
+    return m.n_bodies * 6, len(fm.idx6_a), int((np.asarray(fm.kind) == tsp.KIND_NORMAL).sum())
+
+
+@pytest.mark.parametrize("j_bytes", [2, 4])
+def test_plan_fits_the_spider_in_one_wave(j_bytes):
+    """The spider's rows (bf16 and f32 J) get a plan within the opt-in, of
+    16 envs per block: 128 blocks at B=2048, one wave on 132 SMs, rows by
+    TMA; the same shapes always give the same plan."""
+    nb6, n_rows, n_push = spider_shapes()
+    assert (nb6, n_rows, n_push) == (252, 1896, 548)
+    pl = tsp.plan(nb6, n_rows, n_rows, n_push, j_bytes, OPTIN)
+    assert pl.smem_bytes <= OPTIN and pl.stages >= 2 and pl.threads == 96
+    assert pl.envs == 16 and pl.blocks(2048) == 128 and pl.waves(2048, 132) == 1
+    assert pl.copy(2048) == "tma"
+    assert pl == tsp.plan(nb6, n_rows, n_rows, n_push, j_bytes, OPTIN)
+    # resident per env: v and pv (one spare body each), lam of the visited
+    # rows, plam, iinv9
+    assert 4 * (2 * (nb6 + 6) + n_rows + n_push + 9 * nb6 // 6) == 13_352
+
+
+@pytest.mark.parametrize("b", [1, 4, 17])
+def test_plan_masks_the_last_block(b):
+    """A batch that does not fill its last block leaves masked env slots,
+    and a stride that TMA cannot take (bf16 J at B not a multiple of 8)
+    streams by plain loads."""
+    nb6, n_rows, n_push = spider_shapes()
+    pl = tsp.plan(nb6, n_rows, n_rows, n_push, 2, OPTIN)
+    assert pl.masked(b) > 0 and pl.blocks(b) * pl.envs - pl.masked(b) == b
+    assert pl.blocks(b) == -(-b // 16)
+    assert pl.copy(b) == "plain"
+
+
+def test_plan_raises_when_nothing_fits():
+    nb6, n_rows, n_push = spider_shapes()
+    with pytest.raises(ValueError, match="no launch plan fits"):
+        tsp.plan(6 * 4000, n_rows, n_rows, n_push, 2, OPTIN)
+    with pytest.raises(ValueError, match="no launch plan fits"):
+        tsp.plan(nb6, 60_000, 60_000, n_push, 2, OPTIN)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tsp.plan(nb6, n_rows - 1, n_rows, n_push, 2, OPTIN)

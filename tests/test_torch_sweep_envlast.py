@@ -154,3 +154,59 @@ def test_card_check_fails_a_wrong_sweep(card_check_inputs, fault):
         assert not all(ok for *_, ok in res), (label, res)
         if label == "prof_step rows" and fault != "push_inv_eff":
             assert all(err <= chip_smoke.TOL for _, err, _, _ in res), res
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan (pure Python: it runs here)
+# ---------------------------------------------------------------------------
+
+OPTIN = 232_448  # H100: the shared memory one block may opt in to
+
+
+def _prof_kernel_shapes(case, nr):
+    """(nb6, nr_pad, n_rows, n_push) of one prof_kernel case."""
+    from evomotion_tpu_torch.tools import prof_kernel
+
+    meta = tse.make_envlast_meta(*prof_kernel.case_meta(case, nr, prof_kernel.BODIES), nr, "cpu")
+    return prof_kernel.BODIES * 6, -(-nr // 32) * 32, nr, meta.n_push
+
+
+def test_plan_fits_prof_step_rows_in_one_wave():
+    """prof_step's rows (the spider's full sweep, 1,920 padded rows) get a
+    plan of 16 envs per block within the opt-in: 128 blocks at B=2048, one
+    wave on 132 SMs, rows by TMA."""
+    m, meta, sets = chip_smoke.envlast_inputs(0, 1, torch.device("cpu"))
+    rows = sets["prof_step rows"][0]
+    pl = tse.plan(m.n_bodies * 6, rows.shape[0], len(meta.rows), meta.n_push, OPTIN)
+    assert (rows.shape[0], len(meta.rows), meta.n_push) == (1920, 1896, 548)
+    assert pl.smem_bytes <= OPTIN and pl.stages >= 2 and pl.threads == 64
+    assert pl.envs == 16 and pl.blocks(2048) == 128 and pl.waves(2048, 132) == 1
+    assert pl.copy(2048) == "tma"
+
+
+@pytest.mark.parametrize("case", ["blocks6", "same", "roundrobin", "contact"])
+def test_plan_fits_prof_kernel_2048_rows(case):
+    """prof_kernel's cases at 2,048 rows, the largest row sets a caller
+    uses, get a plan within the opt-in; the contact case (683 push slots)
+    takes 8 envs per block."""
+    nb6, nr_pad, nr, n_push = _prof_kernel_shapes(case, 2048)
+    pl = tse.plan(nb6, nr_pad, nr, n_push, OPTIN)
+    assert pl.smem_bytes <= OPTIN and pl.stages >= 2
+    assert pl.envs == (8 if case == "contact" else 16)
+    assert pl == tse.plan(nb6, nr_pad, nr, n_push, OPTIN)
+
+
+@pytest.mark.parametrize("b", [1, 4, 17])
+def test_plan_masks_the_last_block(b):
+    """A batch that does not fill its last block leaves masked env slots;
+    B not a multiple of 4 streams by plain loads."""
+    pl = tse.plan(*_prof_kernel_shapes("blocks6", 1024), OPTIN)
+    assert pl.masked(b) > 0 and pl.blocks(b) * pl.envs - pl.masked(b) == b
+    assert pl.copy(b) == ("tma" if b % 4 == 0 else "plain")
+
+
+def test_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="no launch plan fits"):
+        tse.plan(6 * 8000, 2048, 2048, 683, OPTIN)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tse.plan(252, 2047, 2048, 683, OPTIN)
