@@ -43,12 +43,16 @@ printed with its seconds:
    sweep) are captured from the first per-env spider step after a seeded
    reset; kernel and plain version on the card must agree within TOL at B=1,
    and on 64 slightly perturbed copies (the batched call shape); the push
-   pass must leave some push velocity non-zero;
+   pass must leave some push velocity non-zero; the launch plan at B=1 and
+   B=64 (blocks, threads, shared memory, stages, the CUDA runtime's resident
+   blocks per SM) with ptxas's registers and spills; the velocity sweep and
+   the push pass timed at B=1, the chain estimate beside the roofline bound;
 9. per-env step check: that per-env spider step on the card (kernel)
    against the same step on the CPU (plain version);
 10. per-env groups check: the same under ``scheduled``: the fat-row sweep's
     velocity sweep (permuted rows, the schedule's groups) against its grouped
-    plain version at B=1, and the per-env step on the card against the CPU;
+    plain version at B=1 (and timed, beside phase 8's canonical sweep), and
+    the per-env step on the card against the CPU;
 11. sequential run path: ``cli.main([... "run" ...])`` on cartpole and
     cartpole3d (3 episodes each) and the spider robot_walk (1 episode),
     random agent; episode lines printed, returns finite, the fat-row sweep
@@ -148,13 +152,14 @@ def ptxas_report(build_log):
     return out
 
 
-def launch_info(kernel, plan, b, n_sms, instance, label):
+def launch_info(kernel, plan, b, n_sms, instance, label, **which):
     """Prints a kernel's launch plan at ``b`` envs, the CUDA runtime's
     resident blocks per SM for it on this card (and the waves of blocks
     that gives over ``n_sms`` SMs), and ptxas's report of the kernel
-    instance launched (the function whose mangled name holds ``instance``);
-    returns them as the kernels line's ``launch`` object."""
-    per_sm = kernel.blocks_per_sm(plan)
+    instance launched (the function whose mangled name holds ``instance``;
+    ``which`` picks that instance for the occupancy query); returns them as
+    the kernels line's ``launch`` object."""
+    per_sm = kernel.blocks_per_sm(plan, **which)
     info = {**plan.describe(b), "blocks_per_sm": per_sm,
             "waves": -(-plan.blocks(b) // (per_sm * n_sms)) if per_sm else None,
             "ptxas": [f for f in ptxas_report(kernel.build_log)
@@ -370,23 +375,35 @@ def fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card):
     in64 = [copies(rows, 1e-3), copies(vel6, 1e-3), copies(lam0, 1e-3), meta, n_iters]
     _, errs["full_b64"], _ = fat_check(in64, cpu, "full, B=64 perturbed copies")
 
+    launch = None
+    if not cpu:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rare = meta.rare  # the instance this meta launches (the spider's: no RARE hand-over)
+        for b, inp in ((64, in64), (1, full_in)):  # the launch of the kernels line last
+            launch = launch_info(sf.KERNEL, sf.KERNEL.plan_for(inp[0], inp[1]), b, n_sms,
+                                 f"solver_sweep_kernelILb{int(rare)}", "fat kernel", rare=rare)
+
     flops = sweep_flops(fat_rows(meta), FAT_OPS, n_iters, rows.shape[0])
-    bound_ms, bound_by, nbytes = bound((rows, vel6, lam0, meta.meta_i, meta.mu, *outs["full"]),
-                                       flops)
+    # the metadata a row needs: its table's four index words and mu (the
+    # table's padding is the kernel's layout, not work)
+    nr = rows.shape[1]
+    bound_ms, bound_by, nbytes = bound(
+        (rows, vel6, lam0, meta.table[:nr, :4], meta.table[:nr, 6], *outs["full"]), flops)
     print(f"bound: {nbytes / 1e3:.1f} kB, {flops / 1e6:.3f} MFLOP -> "
           f"{bound_ms * 1e3:.4f} us ({bound_by})", flush=True)
-    print_chain(n_iters * rows.shape[1], clock_mhz, bound_ms)
+    print_chain(n_iters * nr, clock_mhz, bound_ms)
     if not cpu:
         times["ms"] = cuda_ms(lambda: sf.solver_sweep(*full_in), 20)
         times["push_ms"] = cuda_ms(lambda: sf.solver_sweep(*push_in), 20)
+        push_visits = push_in[4] * push_in[0].shape[1]
         print(f"fat sweep kernel ms/call at B=1 (CUDA events): full {times['ms']:.4f} "
-              f"({n_iters * rows.shape[1]} row visits, "
-              f"{times['ms'] * 1e6 / (n_iters * rows.shape[1]):.1f} ns each), push "
-              f"{times['push_ms']:.4f}; plain version full {times['plain_ms']:.1f} [{card}]",
-              flush=True)
+              f"({n_iters * nr} row visits, {times['ms'] * 1e6 / (n_iters * nr):.1f} ns "
+              f"each), push {times['push_ms']:.4f} ({push_visits} row visits, "
+              f"{times['push_ms'] * 1e6 / push_visits:.1f} ns each); plain version full "
+              f"{times['plain_ms']:.1f} [{card}]", flush=True)
     done("fat kernel check", t0)
     return {"env": env, "state": state, "action": action, "errs": errs, "times": times,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "launch": launch}
 
 
 def perenv_step_check(fat, dev, cpu, name="per-env step check"):
@@ -649,11 +666,13 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label):
     return {"launches": launches, "sps": sps, "step_ms": t_steps / n_steps * 1e3}
 
 
-def perenv_groups_check(args, dev, cpu, params, fat_cap):
+def perenv_groups_check(args, dev, cpu, params, fat_cap, fat, card):
     """Phase 10: the fat-row sweep's velocity sweep in the scheduled order
     (permuted rows, the schedule's groups) against its grouped plain version
-    at B=1, from the first per-env spider step after a seeded reset; then
-    that per-env step on the card against the CPU."""
+    at B=1, from the first per-env spider step after a seeded reset, and
+    timed beside phase 8's canonical sweep (``fat``); then that per-env step
+    on the card against the CPU. Returns (largest difference, ms per
+    scheduled velocity sweep or None)."""
     import torch
 
     from evomotion_tpu_torch.envs.robot import RobotWalk
@@ -674,10 +693,21 @@ def perenv_groups_check(args, dev, cpu, params, fat_cap):
         fail("scheduled per-env step: the velocity sweep must carry groups, the push pass none")
     errs = [fat_check(inp, cpu, f"scheduled {label}")[1]
             for label, inp in (("push", push_in), ("full", full_in))]
+    ms = None
+    if not cpu:
+        from evomotion_tpu_torch.kernels import sweep_fat as sf
+
+        ms = cuda_ms(lambda: sf.solver_sweep(*full_in), 20)
+        visits = full_in[4] * full_in[0].shape[1]
+        canon = fat["times"]["ms"]
+        print(f"fat sweep kernel ms/call at B=1 (CUDA events), velocity sweep: scheduled "
+              f"{ms:.4f} ({ms * 1e6 / visits:.1f} ns per visit), canonical {canon:.4f} "
+              f"({canon * 1e6 / visits:.1f} ns); scheduled / canonical {ms / canon:.3f}; a "
+              f"reading [{card}]", flush=True)
     done("per-env groups check", t0)
     perenv_step_check({"env": env, "state": state, "action": action}, dev, cpu,
                       "per-env scheduled step check")
-    return max(errs)
+    return max(errs), ms
 
 
 def o1_envlast_rows(fm, n_bodies, nr_pad, n_envs, dev, seed):
@@ -1030,7 +1060,7 @@ def main(argv=None):
     del env, env32, state, captured, sched
     fat = fat_kernel_check(args, dev, cpu, params, fat_cap, clock_mhz, card)
     perenv_step_check(fat, dev, cpu)
-    sched_fat_err = perenv_groups_check(args, dev, cpu, params, fat_cap)
+    sched_fat_err, sched_fat_ms = perenv_groups_check(args, dev, cpu, params, fat_cap, fat, card)
     seq = sequential_run(args, dev, cpu, card, cap, fat_cap)
     envlast = envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz)
     prof = profilers(dev, cpu)
@@ -1070,10 +1100,12 @@ def main(argv=None):
         "tol": TOL,
         "ms": fat["times"].get("ms"),
         "push_ms": fat["times"].get("push_ms"),
+        "scheduled_ms": sched_fat_ms,
         "plain_ms": fat["times"].get("plain_ms"),
         "bound_ms": fat["bound_ms"],
         "bound_by": fat["bound_by"],
         "library_ms": None,
+        "launch": fat["launch"],
     }
     envlast_kern = {
         "name": "solver_sweep_envlast",

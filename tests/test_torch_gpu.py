@@ -4,6 +4,10 @@ scheduled rows with their groups; kernel #1 also on the spider's real rows
 at B = 1, 17 and 256 (a stride TMA cannot take, a ragged last block, TMA),
 kernel #3 also on prof_kernel's 2,048-row contact case (8 envs per block);
 both at every envs per block a plan can take, forced by a smaller opt-in;
+kernel #2 also on the spider's real per-env rows (velocity sweep and push
+pass, both orders, B = 1 and 64), on cartpole's and cartpole3d's rows (a
+ragged last stage), on rows built to reach each of its forwarding cases,
+with one iteration, and with the fewest stages a plan can take;
 the launch plans' shared-memory sums and occupancy against the kernels'.
 
 They skip where torch sees no card. This file imports no JAX, so it also
@@ -447,3 +451,205 @@ def test_kernels_ignore_body_b_of_skip_b_rows(envs):
     ref = tse.sweep_envlast_plain(*args, m, 3)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def spider_fat_sweeps():
+    """Kernel #2's inputs, push pass and velocity sweep, in the first per-env
+    spider step after a seeded reset at B=1, in the canonical and the
+    scheduled order (permuted rows, the velocity sweep with its groups)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    dev = torch.device("cuda")
+    out = {}
+    for order in ("canonical", "scheduled"):
+        env = RobotWalk(mt_seed=0, device=dev, per_env_step=True)
+        env.model = dataclasses.replace(env.model, row_order=order)
+        state, _ = env.reset(1)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        action = torch.rand((1, env.action_size), generator=gen, device=dev) * 2 - 1
+        calls, orig = [], tsf.solver_sweep
+
+        def capture(*a):
+            calls.append([x.clone() if torch.is_tensor(x) else x for x in a])
+            return orig(*a)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tsf, "solver_sweep", capture)
+            env.step(state, action)
+        assert len(calls) == 2 and (calls[1][3].groups is not None) == (order == "scheduled")
+        out[order, "push"], out[order, "full"] = calls
+    return out
+
+
+def perturbed_copies(inp, b, seed):
+    """``b`` copies of a B=1 fat sweep's inputs, each tensor scaled by
+    1 + 1e-3 N(0, 1) per entry (numpy-made), so that the envs differ."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for x in inp[:3]:
+        shape = (b,) + tuple(x.shape[1:])
+        noise = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=x.device)
+        out.append((x.expand(shape) * (1 + 1e-3 * noise)).contiguous())
+    return out + list(inp[3:])
+
+
+def fat_kernel_vs_plain(inp, atol=1e-4):
+    """Kernel #2 (one launch) against its plain version."""
+    before = tsf.KERNEL.launches
+    got = tsf.solver_sweep(*inp)
+    torch.cuda.synchronize()
+    assert tsf.KERNEL.launches == before + 1
+    ref = tsf.sweep_fat_plain(*inp)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=atol, rtol=0)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("sweep", ["full", "push"])
+@pytest.mark.parametrize("order", ["canonical", "scheduled"])
+def test_fat_kernel_matches_plain_on_spider_rows(spider_fat_sweeps, order, sweep, b):
+    """Kernel #2 on the spider's real per-env rows (1,896 rows of the
+    velocity sweep, 548 of the push pass, 42 bodies, 10 iterations: the
+    ring wraps across iterations) at B=1 and on 64 perturbed copies."""
+    inp = spider_fat_sweeps[order, sweep]
+    if b > 1:
+        inp = perturbed_copies(inp, b, 11)
+    fat_kernel_vs_plain(inp)
+    assert tsf.KERNEL.last.stages == tsf.MAX_STAGES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cartpole", "cartpole3d"])
+def test_fat_kernel_matches_plain_on_cartpole_rows(name):
+    """Kernel #2 on the first sweep of a cartpole step (13 and 17 joint
+    rows: the last stage of each pass is ragged)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.cartpole import CartPole
+    from evomotion_tpu_torch.envs.cartpole3d import CartPole3d
+
+    dev = torch.device("cuda")
+    env = (CartPole if name == "cartpole" else CartPole3d)(mt_seed=3, device=dev)
+    state, _ = env.reset(1)
+    calls, orig = [], tsf.solver_sweep
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsf, "solver_sweep", lambda *a: calls.append(list(a)) or orig(*a))
+        env.step(state, torch.full((1, env.action_size), 0.7, device=dev))
+    inp = [x.clone() if torch.is_tensor(x) else x for x in calls[0]]
+    assert inp[0].shape[1] % 8 != 0
+    fat_kernel_vs_plain(inp)
+
+
+def forwarding_rows(seed, b):
+    """Fat rows that reach each case of kernel #2's forwarding, in order
+    (bodies 1-4 dynamic, 0 static; a friction row's parent is the row
+    before it, so its bound is the impulse the visit before just wrote):
+
+    - consecutive rows sharing body A, and sharing body B;
+    - A and B swapped; the next row's A is this row's B; its B this row's A;
+    - the same bodies twice in a row;
+    - skip_b rows (body B static) with non-zero J_b and dv_b columns, two
+      in a row (both write the spare body), then a friction row on each;
+    - 21 rows: the last stage of a pass holds 5.
+
+    Returns (rows [b, 21, 28], vel6 [b, 5, 6], lam0 [b, 21], meta)."""
+    pairs = [(1, 2), (1, 3), (4, 3), (3, 4), (4, 1), (2, 4), (2, 4), (3, 2),
+             (1, 0), (1, 0), (2, 0), (3, 1), (3, 1), (4, 0), (2, 3), (1, 2),
+             (4, 1), (1, 4), (2, 0), (2, 0), (4, 3)]
+    kind = [0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 1, 1, 2, 1, 0, 0, 0, 0, 1, 2, 0]
+    nr = len(pairs)
+    parent = np.where(np.array(kind) == 2, np.arange(nr) - 1, -1)
+    ia = np.array([a * 6 for a, _ in pairs], np.int32)
+    ib = np.array([b_ * 6 for _, b_ in pairs], np.int32)
+    skip = np.array([b_ == 0 for _, b_ in pairs])
+    rng = np.random.default_rng(seed)
+    mu = np.where(np.array(kind) == 2, rng.uniform(0.2, 1.0, nr), 0.0).astype(np.float32)
+    rows = np.zeros((b, nr, tsf.ROW_F), np.float32)
+    j = rng.normal(size=(b, nr, 12)) * 0.5
+    inv_m = rng.uniform(0.5, 2.0, size=(b, nr, 12))
+    dv = j * inv_m  # a diagonal Minv per row and env
+    eff = (j[..., :6] * dv[..., :6]).sum(-1) + np.where(skip, 0.0,
+                                                         (j[..., 6:] * dv[..., 6:]).sum(-1))
+    rows[..., :12], rows[..., 12:24] = j, dv  # skip_b rows keep J_b and dv_b: not read
+    rows[..., 24] = rng.normal(size=(b, nr))
+    rows[..., 25] = -np.abs(rng.normal(size=(b, nr))) * 2
+    rows[..., 26] = np.abs(rng.normal(size=(b, nr))) * 2
+    rows[..., 27] = 1.0 / eff
+    vel6 = rng.normal(size=(b, 5, 6)).astype(np.float32)
+    lam0 = (np.abs(rng.normal(size=(b, nr))) * 0.1).astype(np.float32)
+    return rows, vel6, lam0, (ia, ib, parent.astype(np.int32), mu, np.array(kind, np.int32),
+                              skip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 3])
+@pytest.mark.parametrize("b", [1, 5])
+def test_fat_kernel_forwarding_cases(b, n_iters):
+    """Kernel #2 on :func:`forwarding_rows`, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    rows, vel6, lam0, meta = forwarding_rows(5, b)
+    assert np.abs(rows[:, meta[5], 6:12]).min() > 0  # skip_b rows carry J_b
+    m = tsf.make_fat_meta(*meta, dev)
+    args = [torch.as_tensor(x, device=dev) for x in (rows, vel6, lam0)]
+    vel, lam = fat_kernel_vs_plain(args + [m, n_iters])
+    assert float((lam - args[2]).abs().max()) > 0 and float((vel - args[1]).abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_fat_kernel_with_one_iteration_and_two_stages(spider_fat_sweeps):
+    """Kernel #2 with one iteration (the ring does not wrap before the last
+    read-ahead), and with the fewest stages a plan takes (2, forced by a
+    smaller opt-in), on the spider's velocity sweep rows in both orders."""
+    lib = tsf.KERNEL.lib()
+    for order in ("canonical", "scheduled"):
+        rows, vel6, lam0, meta, _ = spider_fat_sweeps[order, "full"]
+        fat_kernel_vs_plain([rows, vel6, lam0, meta, 1])
+        cap = tsf.smem_bytes(2, vel6.shape[1] * 6, rows.shape[1])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lib, "solver_sweep_max_smem_per_block", lambda: cap)
+            fat_kernel_vs_plain([rows, vel6, lam0, meta, 3])
+        assert tsf.KERNEL.last.stages == 2
+
+
+@pytest.mark.gpu
+def test_fat_plan_matches_the_kernels_shared_memory_sum():
+    """Kernel #2's planner and the kernel sum a plan's bytes alike, the
+    launch refuses a plan whose bytes differ, the card holds the spider's
+    plan, and on a CUDA tensor a row set no plan fits raises (no fallback)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    lib = tsf.KERNEL.lib()
+    optin = lib.solver_sweep_max_smem_per_block()
+    assert optin >= 232_448
+    for nb6, nr in ((252, 1896), (252, 548), (18, 13), (24, 17), (252, 2048), (30, 0)):
+        for cap in (optin, tsf.smem_bytes(3, nb6, nr)):
+            pl = tsf.plan(nb6, nr, cap)
+            assert pl.smem_bytes == lib.solver_sweep_smem_bytes(pl.stages, nb6, nr)
+    pl = tsf.plan(252, 1896, optin)
+    assert tsf.KERNEL.blocks_per_sm(pl) >= 1 and tsf.KERNEL.blocks_per_sm(pl, rare=True) >= 1
+
+    dev = torch.device("cuda")
+    rows, vel6, lam0, meta = forwarding_rows(6, 2)
+    m = tsf.make_fat_meta(*meta, dev)
+    args = [torch.as_tensor(x, device=dev) for x in (rows, vel6, lam0)]
+    out = [torch.empty_like(args[1]), torch.empty_like(args[2])]
+    pl = tsf.KERNEL.plan_for(args[0], args[1])
+    err = lib.solver_sweep_launch(
+        args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), m.table.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), 2, 30, rows.shape[1], 1, int(m.rare), pl.stages,
+        pl.smem_bytes + 128, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    before = tsf.KERNEL.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lib, "solver_sweep_max_smem_per_block",
+                   lambda: tsf.smem_bytes(2, 30, rows.shape[1]) - 1)
+        with pytest.raises(ValueError, match="no launch plan fits"):
+            tsf.solver_sweep(*args, m, 1)
+    assert tsf.KERNEL.launches == before
