@@ -4,17 +4,19 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
-Four paths run, each with its kernel: the batched spider ``robot_walk``
+Six paths run, each with its kernel: the batched spider ``robot_walk``
 rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``), in
 the canonical and in the ``scheduled`` row order (the slim sweep's groups
 mode); the CLI's sequential ``run`` (one world, the per-env physics step,
 the fat-row sweep ``kernels/csrc/solver_sweep.cu`` twice per spider step);
-and the two profilers of ``evomotion_tpu_torch.tools`` (the env-last
-fat-row sweep ``kernels/csrc/solver_sweep_envlast.cu``). Phases, each
-printed with its seconds:
+the two profilers of ``evomotion_tpu_torch.tools`` (the env-last fat-row
+sweep ``kernels/csrc/solver_sweep_envlast.cu``); the greedy eval of the
+committed walker (``tools.eval_walk``) and the CLI's batched PPO ``train``,
+both on the batched step and the slim sweep. Phases, each printed with its
+seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
-   torch and nvcc versions;
+   torch and nvcc versions, the f32 matmul setting (no TF32);
 2. build: nvcc builds the three kernels, one process each, started
    together, and prints their registers and spills;
 3. kernel check: the slim sweep's inputs are captured at B=2048 from the
@@ -69,7 +71,24 @@ printed with its seconds:
     (phase times and launches), each once through its ``main``; the
     env-last sweep's launches (set to 0 just before each, read just after)
     must equal the sweep calls each tool reports;
-14. the kernels line and the last line (one JSON object each).
+14. walker eval, the serving path: ``tools.eval_walk.main`` on the port's
+    copy of the committed walker (``ppo`` tier, its ``scheduled`` order, 64
+    envs, the 1800-step win horizon, seed 999); the actor on the card
+    against the CPU actor on the eval's first observations within
+    POLICY_TOL, the mean valid steps within the first 400 above
+    WALKER_EARLY_FLOOR; the slim sweep's kernel on the eval's first call
+    (64 envs, scheduled rows with their groups) against its plain version
+    within TOL; win rate, episode lengths, return and ms per env step
+    printed; the slim sweep launched once per physics step (counts set to 0
+    just before, read just after);
+15. ppo train: ``cli.main([... "robot_walk", "ppo_gae", "--num_envs",
+    "2048", ... "train", ...])`` for 3 iterations with the walker's recipe
+    and ``EVOMOTION_PROFILE=1``: finite losses, moved params, ``save_0``
+    loading back equal; rollout and update ms per iteration and env-steps/s
+    printed; the slim sweep counted as in 14, and its kernel on the run's
+    first call against its plain version within TOL; then a 200-step
+    greedy eval of the saved actor at 16 envs;
+16. the kernels line and the last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -83,6 +102,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -100,6 +120,8 @@ TOL = 1e-3
 # a dropped body, a wrong slot or a missing inv_eff moves an output by a
 # large share of its own size.
 REL_TOL = 1e-4
+# envs of a captured full-batch sweep call that its plain version checks
+N_CMP = 256
 # |card step - CPU step| bound on pos, quat and velocities after one physics
 # step with f32 rows: the same arithmetic, rounded in another order.
 STEP_TOL = 1e-3
@@ -131,6 +153,14 @@ CHAIN_OPS = 12
 FP32_LATENCY_CYCLES = 4
 SEQ_EPISODES = {"cartpole": 3, "cartpole3d": 3, "robot_walk": 1}
 SCHEDULED_STEPS = 60  # env steps of the scheduled rollout after its reset
+# the walker eval: the JAX tool's defaults (64 envs, seed 999)
+WALKER_ENVS, WALKER_SEED = 64, 999
+# |card - CPU| bound on the walker actor's (mu, sigma): f32 matmuls on both
+# (no TF32), summed in another order; mu and sigma are O(1)
+POLICY_TOL = 1e-4
+# the JAX package's floor for a non-degenerate gait: mean valid steps
+# within the first 400 (tests/test_walker_artifact.py:117, the alt order's)
+WALKER_EARLY_FLOOR = 100
 EPISODE_LINE = re.compile(r"^episode (\d+): (\d+) steps, return (\S+)$")
 
 
@@ -532,6 +562,25 @@ def slim_check(inp, out, n_cmp, label):
     return max(err)
 
 
+def captured_check(inp, cpu, label):
+    """The slim sweep's kernel on one captured call's inputs against its
+    plain version on the first N_CMP envs (fails unless within TOL);
+    returns the largest difference. On the CPU, the plain version twice."""
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    if inp is None:
+        fail(f"{label}: no slim sweep call was captured")
+    meta = inp[5]
+    print(f"{label}: rows {tuple(inp[0].shape)} {inp[0].dtype}, "
+          f"{len(meta.groups or ())} groups", flush=True)
+    out = sp.sweep_plain(*inp) if cpu else sp.solver_sweep_envlast_slim(*inp)
+    if not cpu:
+        torch.cuda.synchronize()
+    return slim_check(inp, out, min(N_CMP, inp[0].shape[-1]), label)
+
+
 def batched_step_check(env, state, action, n, dev, label):
     """One batched physics step of ``n`` envs on the card (kernel) against
     the same step on the CPU (plain version); returns the largest difference."""
@@ -848,11 +897,12 @@ def envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz):
             "bound_by": bound_by, "launch": launch}
 
 
-def run_tool(module, argv, label):
-    """Runs a tool's ``main(argv)``, prints its output, returns its JSON line."""
+def run_tool(module, argv, label, **kw):
+    """Runs a tool's ``main(argv, **kw)``, prints its output, returns its
+    JSON line."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = module.main(argv)
+        rc = module.main(argv, **kw)
     lines = buf.getvalue().splitlines()
     for line in lines[:-1]:
         print(f"{label}: {line}", flush=True)
@@ -894,6 +944,229 @@ def profilers(dev, cpu):
     return out
 
 
+def small_walker(cpu):
+    """For the CPU rehearsal only: the walker tools' envs and eval horizons
+    shrunk (``tools.rehearsal.small_walker``); on the card, nothing."""
+    from evomotion_tpu_torch.tools.rehearsal import small_walker as shrink
+
+    return shrink(3) if cpu else contextlib.nullcontext()
+
+
+def walker_eval(args, dev, cpu, card, cap):
+    """Phase 14, the serving path: ``tools.eval_walk.main`` on the port's
+    copy of the committed walker (``ppo`` tier, its meta.json's row order,
+    64 envs, the 1800-step win horizon, the tool's default seed 999). Gate
+    1: the actor's (mu, sigma) on the card against the CPU actor on the
+    eval's first observations (the same seeded reset) within POLICY_TOL.
+    Gate 2: the mean valid steps within the first 400 env steps above
+    WALKER_EARLY_FLOOR. Before the eval, the slim sweep's inputs of the
+    eval's first step (this path's shapes: its env count and row order,
+    with its groups) go through the kernel and its plain version, which
+    must agree within TOL. The slim sweep's counts are set to 0 just before
+    the eval and read just after: one launch per physics step."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.tools import eval_walk as ew
+
+    t0 = phase("walker eval")
+    n_envs = 2 if cpu else WALKER_ENVS
+    with open(os.path.join(ew.WALKER_DIR, "meta.json")) as f:
+        meta = json.load(f)
+    with small_walker(cpu):
+        env = RobotWalkFactory({}).make(WALKER_SEED, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        env.model = dataclasses.replace(env.model, row_order=meta["eval_order"])
+        gen = torch.Generator(device=dev).manual_seed(WALKER_SEED)
+        est, first = env.reset(n_envs, gen)
+        card_pol = ew.load_policy("ppo", ew.WALKER_DIR, env.observation_size,
+                                  env.action_size, 256, dev)
+        cpu_pol = ew.load_policy("ppo", ew.WALKER_DIR, env.observation_size,
+                                 env.action_size, 256, "cpu")
+        with torch.no_grad():
+            got = card_pol.actor(card_pol.normalize(first.obs))
+            ref = cpu_pol.actor(cpu_pol.normalize(first.obs.cpu()))
+        pol_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, ref))
+        print(f"walker actor on the card vs the CPU on the eval's first observations "
+              f"({n_envs} envs): max |diff| of (mu, sigma) {pol_err:.3e} (tol {POLICY_TOL:g}; "
+              f"matmul precision {torch.get_float32_matmul_precision()}, TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32})", flush=True)
+        if not pol_err <= POLICY_TOL:
+            fail(f"walker actor on the card disagrees with the CPU: {pol_err}")
+        cap.arm(limit=1)
+        env.step(est, card_pol(first.obs), gen)
+        cap.armed = False
+        kern_err = captured_check(cap.inputs, cpu, f"walker eval sweep, B={n_envs} "
+                                  f"{meta['eval_order']}")
+        want = env.settle_total + ew.WIN  # physics steps of the eval
+        del env, est, first
+        sp.KERNEL.launches = 0
+        cap.calls = 0
+        res = run_tool(ew, ["ppo", ew.WALKER_DIR, "--episodes", str(n_envs),
+                            "--seed", str(WALKER_SEED)], "eval_walk", device=dev)
+        launches, calls = sp.KERNEL.launches, cap.calls
+    print(f"walker eval: sweep calls {calls}, kernel launches {launches}, physics steps "
+          f"{want}", flush=True)
+    if calls != want or (not cpu and launches != want):
+        fail(f"walker eval: expected {want} slim sweep launches, got {launches} launches "
+             f"of {calls} calls")
+    if res["row_order"] != meta["eval_order"] or res["envs"] != n_envs:
+        fail(f"walker eval ran {res['envs']} envs under {res['row_order']}")
+    nums = [res[k] for k in ("win_rate", "mean_len", "median_len", "mean_return",
+                             "early_steps_mean", "ms_per_step")]
+    if not all(math.isfinite(x) for x in nums):
+        fail(f"walker eval: non-finite result {nums}")
+    print(f"walker eval [{card}]: win rate {res['win_rate']:.4f} ({res['wins']}/{n_envs}) over "
+          f"the {res['win_horizon']}-step win horizon; episode length mean "
+          f"{res['mean_len']:.2f}, median {res['median_len']:.1f}, max {res['max_len']}; "
+          f"mean return {res['mean_return']:.3f}; {res['ms_per_step']:.3f} ms per env step "
+          f"at B={n_envs} (host clock); reset {res['reset_s']:.2f} s", flush=True)
+    print(f"walker eval: mean valid steps within the first {res['early_horizon']}: "
+          f"{res['early_steps_mean']:.2f} (gate: > {WALKER_EARLY_FLOOR}; the JAX package's "
+          f"bar for the primary order, 250, is a reading here: JAX's own median at seed "
+          f"999 is 139)", flush=True)
+    if not cpu and not res["early_steps_mean"] > WALKER_EARLY_FLOOR:
+        fail(f"walker eval: mean valid steps within the first 400 "
+             f"{res['early_steps_mean']} <= {WALKER_EARLY_FLOOR}")
+    done("walker eval", t0)
+    return {"launches": launches, "res": res, "policy_err": pol_err, "err": kern_err}
+
+
+PROGRESS = re.compile(r"save 0 actor=(\S+) critic=(\S+) r/step=(\S+) ([\d,]+) env-steps/s "
+                      r"\[(\d+)/(\d+)\]")
+PROFILE = re.compile(r"(\w+): ([\d.]+)s/(\d+)x")
+
+
+def ppo_train(args, dev, cpu, card, cap):
+    """Phase 15, the CLI's batched ``train``: ``cli.main(["cli",
+    "robot_walk", "ppo_gae", "--num_envs", ..., "train", out, "-e", "3",
+    "-n", "1"])`` with the walker's recipe (hidden 256, horizon 64, epoch 8,
+    lr 1e-3) and ``EVOMOTION_PROFILE=1``. The losses must be finite, every
+    actor tensor must have moved from its seeded init, and ``save_0``'s
+    components must load back equal (on the card). The slim sweep's counts
+    are set to 0 just before and read just after: one launch per physics
+    step; the first call's inputs are kept and, after the run, go through
+    the kernel and its plain version, which must agree within TOL. Then a
+    200-step greedy eval of the saved actor at 16 envs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch import cli, convert
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.networks.modules import Actor, Critic
+    from evomotion_tpu_torch.tools import eval_walk as ew
+    from evomotion_tpu_torch.train.checkpoint import load_component
+
+    t0 = phase("ppo train")
+    n_envs, hidden, horizon, epoch = (2, 16, 2, 1) if cpu else (2048, 256, 64, 8)
+    iters = 3
+    with tempfile.TemporaryDirectory() as out, small_walker(cpu):
+        # the env the smoke eval below uses is the one the CLI builds
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        argv = ["cli", "robot_walk", "ppo_gae", "--num_envs", str(n_envs), "--env_seed",
+                str(args.seed), "--agent_parameters", f"hidden_size={hidden}",
+                f"horizon={horizon}", f"epoch={epoch}", "learning_rate=1e-3", "train", out,
+                "-e", str(iters), "-n", "1"]
+        print("ppo train: " + " ".join(argv), flush=True)
+        old = os.environ.get("EVOMOTION_PROFILE")
+        os.environ["EVOMOTION_PROFILE"] = "1"
+        buf = io.StringIO()
+        sp.KERNEL.launches = 0
+        cap.calls = 0
+        cap.arm(limit=1)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv, device=dev)
+            if not cpu:
+                torch.cuda.synchronize()
+        finally:
+            cap.armed = False
+            if old is None:
+                del os.environ["EVOMOTION_PROFILE"]
+            else:
+                os.environ["EVOMOTION_PROFILE"] = old
+        launches, calls = sp.KERNEL.launches, cap.calls
+        kern_err = captured_check(cap.inputs, cpu, f"ppo train sweep, B={n_envs} "
+                                  f"{env.model.row_order}")
+        text = buf.getvalue()
+        for line in text.replace("\r", "\n").splitlines():
+            if line.strip():
+                print(f"ppo train: {line.strip()}", flush=True)
+        want = env.settle_total + iters * horizon
+        print(f"ppo train: sweep calls {calls}, kernel launches {launches}, physics steps "
+              f"{want}", flush=True)
+        if rc != 0:
+            fail(f"ppo train: cli returned {rc}")
+        if calls != want or (not cpu and launches != want):
+            fail(f"ppo train: expected {want} slim sweep launches, got {launches} launches "
+                 f"of {calls} calls")
+        prog = PROGRESS.findall(text)
+        losses = [float(x) for m in prog for x in m[:3]]
+        if not prog or prog[-1][4] != str(iters) or not all(map(math.isfinite, losses)):
+            fail(f"ppo train: progress lines {prog}")
+        prof = {k: (float(sec), int(n)) for k, sec, n in PROFILE.findall(
+            text[text.index("[profile]"):])}
+        rate = float(re.search(r"\(([\d,]+) env-steps/s incl\. update\)", text)
+                     .group(1).replace(",", ""))
+        if {k: n for k, (_, n) in prof.items()} != dict.fromkeys(
+                ("rollout", "train_iter", "update"), iters):
+            fail(f"ppo train: profile {prof}")
+        ms = {k: sec / n * 1e3 for k, (sec, n) in prof.items()}
+        print(f"ppo train [{card}]: per iteration ({horizon} steps x {n_envs} envs, "
+              f"{epoch} epochs): rollout {ms['rollout']:.0f} ms, update {ms['update']:.0f} ms, "
+              f"iteration {ms['train_iter']:.0f} ms (StepTimer, 10 ms resolution); "
+              f"{rate:.0f} env-steps/s incl. the update; last actor loss {prog[-1][0]}, "
+              f"critic loss {prog[-1][1]}", flush=True)
+
+        save = os.path.join(out, "save_0")
+        s, a = env.observation_size, env.action_size
+        init = Actor(s, a, hidden, torch.Generator().manual_seed(args.seed))
+        actor = load_component(save, "actor", Actor(s, a, hidden).to(dev))
+        critic = load_component(save, "critic", Critic(s, hidden).to(dev))
+        moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
+                 for (n, p), q in zip(actor.named_parameters(), init.parameters())}
+        if not all(x > 0 and math.isfinite(x) for x in moved.values()):
+            fail(f"ppo train: actor params did not all move from their init: {moved}")
+        print(f"ppo train: actor params moved from their init by max |diff| "
+              f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}",
+              flush=True)
+        for name, module in (("actor", actor), ("critic", critic)):
+            opt = torch.optim.Adam(module.parameters())
+            convert.load_adam(opt, module, load_component(
+                save, f"{name}_optimizer", convert.adam_tree(opt, module)))
+            with np.load(os.path.join(save, f"{name}.npz")) as p_raw, \
+                    np.load(os.path.join(save, f"{name}_optimizer.npz")) as o_raw:
+                for n, p in module.named_parameters():
+                    key = n.replace(".", "/")
+                    st = opt.state[p]
+                    same = (np.array_equal(p.detach().cpu().numpy(), p_raw[key])
+                            and np.array_equal(st["exp_avg"].cpu().numpy(), o_raw[f"1/0/mu/{key}"])
+                            and np.array_equal(st["exp_avg_sq"].cpu().numpy(),
+                                               o_raw[f"1/0/nu/{key}"])
+                            and int(st["step"]) == int(o_raw["1/0/count"]) == iters * epoch)
+                    if not same:
+                        fail(f"ppo train: save_0 {name} {n} did not load back equal")
+        print("ppo train: save_0 (actor, critic and their Adam states) loads back equal on "
+              f"the card, Adam count {iters * epoch}", flush=True)
+
+        n_smoke, h_smoke = (2, 3) if cpu else (16, 200)
+        r = ew.greedy_eval(env, ew.GreedyPolicy(actor).eval(), n_smoke, h_smoke,
+                           torch.Generator(device=dev).manual_seed(args.seed))
+    steps = r.steps.float()
+    if not (bool(torch.isfinite(r.ret).all()) and int(r.steps.max()) <= h_smoke):
+        fail("ppo train: the greedy eval of the trained actor gave non-finite returns")
+    print(f"ppo train: greedy eval of save_0's actor, {n_smoke} envs x {h_smoke} steps: mean "
+          f"valid steps {float(steps.mean()):.2f}, mean return {float(r.ret.mean()):.3f}, "
+          f"{r.steps_s / h_smoke * 1e3:.3f} ms per env step [{card}]", flush=True)
+    done("ppo train", t0)
+    return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -917,7 +1190,7 @@ def main(argv=None):
 
     cpu = args.cpu
     dev = torch.device("cpu" if cpu else "cuda")
-    n_envs, n_cmp, n_steps = (4, 2, 3) if cpu else (2048, 256, 120)
+    n_envs, n_cmp, n_steps = (4, 2, 3) if cpu else (2048, N_CMP, 120)
     params = RobotWalkParams(reset_frames=1) if cpu else RobotWalkParams()
     cap = SweepCapture(sp, batched, "sp", "solver_sweep_envlast_slim")
     fat_cap = SweepCapture(sf, perenv, "sf", "solver_sweep")
@@ -928,6 +1201,11 @@ def main(argv=None):
     smi_line = None
     clock_mhz = None  # top SM clock as nvidia-smi reads it, for the chain estimate
     if not cpu:
+        from evomotion_tpu_torch.device import resolve
+
+        resolve(dev)  # as every entry point: f32 matmuls without TF32
+        print(f"f32 matmul precision {torch.get_float32_matmul_precision()}, TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
         name = torch.cuda.get_device_name(0)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1064,8 +1342,10 @@ def main(argv=None):
     seq = sequential_run(args, dev, cpu, card, cap, fat_cap)
     envlast = envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz)
     prof = profilers(dev, cpu)
+    walker = walker_eval(args, dev, cpu, card, cap)
+    train = ppo_train(args, dev, cpu, card, cap)
 
-    # ---- 14. kernels line and last line ----
+    # ---- 16. kernels line and last line ----
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -1073,10 +1353,13 @@ def main(argv=None):
         "source": "evomotion_tpu_torch/kernels/csrc/sweep_envlast_slim.cu",
         "replaces": REPLACES,
         "tpu_kernel": TPU_KERNEL,
-        "launches": main_run["launches"] + sched_run["launches"],
+        "launches": (main_run["launches"] + sched_run["launches"] + walker["launches"]
+                     + train["launches"]),
         "launches_by_path": {"batched canonical": main_run["launches"],
-                             "batched scheduled": sched_run["launches"]},
-        "max_abs_err": max(*errs.values(), sched_err),
+                             "batched scheduled": sched_run["launches"],
+                             "walker eval": walker["launches"],
+                             "ppo train": train["launches"]},
+        "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),

@@ -5,7 +5,9 @@ Reference: evo_motion_networks/src/agent_factory.cpp. Agent parameters have
 NO defaults: a missing key raises ValueError (agent_factory.cpp:26-30 throws
 std::invalid_argument). Registry names match AGENT_FACTORY_CONSTRUCTORS
 (:189-206). The debug agents are ported; the learning agents are listed and
-raise NotImplementedError naming their ROADMAP item.
+their sequential agents raise NotImplementedError naming their ROADMAP item
+(A8). ``ppo_gae`` trains on the batched tier without an agent object (the
+CLI's ``train --num_envs N``, ``train.driver.train_batched``).
 """
 
 from __future__ import annotations
@@ -49,19 +51,20 @@ def _not_ported(name: str, item: str):
     return _Factory
 
 
-# the learning agents need the networks (ROADMAP A8) and their trainers
-# (A9: PPO-GAE, A10: the others)
+# the networks, the truncated normal, checkpoints and the batched PPO-GAE
+# trainer are ported; the sequential learning agents (act/done/save/load,
+# the CLI's `train --num_envs 1` and `run` of a trained agent) are ROADMAP A8
 AGENT_FACTORY_CONSTRUCTORS = {
     "random": RandomAgentFactory,
     "constant": ConstantAgentFactory,
-    "actor_critic": _not_ported("actor_critic", "A10"),
-    "actor_critic_liquid": _not_ported("actor_critic_liquid", "A10"),
-    "soft_actor_critic": _not_ported("soft_actor_critic", "A10"),
-    "soft_actor_critic_liquid": _not_ported("soft_actor_critic_liquid", "A10"),
-    "ppo_gae": _not_ported("ppo_gae", "A9"),
-    "ppo_gae_liquid": _not_ported("ppo_gae_liquid", "A10"),
-    "ppo_vanilla": _not_ported("ppo_vanilla", "A10"),
-    "cross_q": _not_ported("cross_q", "A10"),
+    "actor_critic": _not_ported("actor_critic", "A8"),
+    "actor_critic_liquid": _not_ported("actor_critic_liquid", "A8"),
+    "soft_actor_critic": _not_ported("soft_actor_critic", "A8"),
+    "soft_actor_critic_liquid": _not_ported("soft_actor_critic_liquid", "A8"),
+    "ppo_gae": _not_ported("ppo_gae", "A8"),
+    "ppo_gae_liquid": _not_ported("ppo_gae_liquid", "A8"),
+    "ppo_vanilla": _not_ported("ppo_vanilla", "A8"),
+    "cross_q": _not_ported("cross_q", "A8"),
 }
 
 

@@ -5,10 +5,16 @@ The reference CLI surface (src/main.cpp:25-152):
     python -m evomotion_tpu_torch.cli cli <env> <agent> [--agent_parameters k=v ...]
         [--env_parameters k=v ...] [--env_seed N] run <save_dir> [--episodes N]
 
+    python -m evomotion_tpu_torch.cli cli robot_walk ppo_gae --num_envs 2048
+        [--agent_parameters k=v ...] train <out_dir> [-e ITERS_PER_SAVE] [-n SAVES]
+
 ``run`` is ported (the sequential tier: one world, the per-env physics step,
-on the card). ``train``, ``gui`` and run's viewer options (--record, --html,
---live) parse but raise NotImplementedError naming their ROADMAP item.
---cuda and --env_num_threads are accepted for surface parity and ignored.
+on the card), and so is ``train --num_envs N`` with N > 1 for ``ppo_gae``
+on robot_walk (the batched tier: ``train.driver.train_batched``). The
+sequential ``train`` (``--num_envs 1``), the other batched agents, ``gui``
+and run's viewer options (--record, --html, --live) parse but raise
+NotImplementedError naming their ROADMAP item. --cuda and
+--env_num_threads are accepted for surface parity and ignored.
 """
 
 from __future__ import annotations
@@ -85,20 +91,25 @@ def main(argv=None, device=None):
     agent_kv, env_kv, rest = _extract_kv_flags(list(argv))
     args = build_parser().parse_args(rest)
     if args.mode == "gui":
-        raise NotImplementedError("gui (the web robot builder) is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("gui (the web robot builder) is not ported yet (ROADMAP A11)")
 
     from .agents.factory import get_agent_factory
     from .envs.registry import get_environment_factory
 
     agent_factory = get_agent_factory(args.agent_name, agent_kv)
     env_factory = get_environment_factory(args.env_name, env_kv)
-    if args.action == "train":
-        raise NotImplementedError(
-            "train is not ported yet: it needs the learning agents (ROADMAP A8-A10)")
-    if args.live or args.html:
-        raise NotImplementedError("run --live / --html are not ported yet (ROADMAP A12)")
+    from .train.driver import infer, train_batched
 
-    from .train.driver import infer
+    if args.action == "train":
+        if args.num_envs > 1:
+            return train_batched(args.env_seed, env_factory, agent_kv, args.num_envs,
+                                 args.episodes, args.nb_saves, args.output_path,
+                                 agent_name=args.agent_name, device=device)
+        raise NotImplementedError(
+            "train --num_envs 1 (the sequential trainer) is not ported yet: it needs the "
+            "learning agents (ROADMAP A8)")
+    if args.live or args.html:
+        raise NotImplementedError("run --live / --html are not ported yet (ROADMAP A11)")
 
     return infer(args.env_seed, agent_factory, env_factory, args.input_path,
                  episodes=args.episodes, record_path=args.record, device=device)

@@ -1,4 +1,4 @@
-"""Carry models and state across from the JAX package, as numpy arrays.
+"""Carry models, state and weights across from the JAX package, as numpy arrays.
 
 This is the port's "weights and state carried across": the tests build one
 model and states with the JAX package, hand them over through these
@@ -8,6 +8,17 @@ imports the JAX package; inputs are objects with the right attributes (a JAX
 name to array. Arrays keep their shapes: one world (the JAX per-env
 layout, what ``engine.physics_step`` steps with the per-env step) or a batch
 with the env axis FIRST (a vmapped JAX state).
+
+Network weights: a JAX param or state pytree is nested dicts of arrays whose
+paths are the names of the port module's parameters and buffers
+(``networks.modules``: ``h1/lin/w`` is ``h1.lin.w``), so one pair of
+functions serves the actor, critic, Q and BN-Q networks and BatchRenorm:
+``params_tree`` / ``load_params`` for parameters, ``state_tree`` /
+``load_state`` for buffers (BatchRenorm's running statistics and step).
+``adam_tree`` / ``load_adam`` map a ``torch.optim.Adam`` over a module's
+parameters to the state of the JAX trainers' ``optax.chain(
+clip_by_global_norm, adam)`` and back: ``count`` is the step, ``mu`` and
+``nu`` are ``exp_avg`` and ``exp_avg_sq``.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from .envs.robot import RobotEnvState
 from .physics.engine import PhysicsState
@@ -59,3 +71,92 @@ def robot_env_state(src, device) -> RobotEnvState:
         v = _field(src, f)
         kw[f] = physics_state(v, device) if f == "physics" else _tensor(v, device)
     return RobotEnvState(**kw)
+
+
+# --- network weights and optimizer state ------------------------------------
+
+
+def _nested(named) -> dict:
+    """``{"a.b.c": x}`` -> ``{"a": {"b": {"c": x}}}``."""
+    out: dict = {}
+    for name, x in named:
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = x
+    return out
+
+
+def _at(tree, name):
+    for k in name.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def params_tree(module: nn.Module) -> dict:
+    """The module's parameters as the JAX package's param pytree (nested
+    dicts of numpy arrays)."""
+    return _nested((n, _numpy(p)) for n, p in module.named_parameters())
+
+
+def state_tree(module: nn.Module) -> dict:
+    """The module's buffers as the JAX package's state pytree (BatchRenorm:
+    ``running_mean``, ``running_std``, ``step``)."""
+    return _nested((n, _numpy(b)) for n, b in module.named_buffers())
+
+
+@torch.no_grad()
+def _copy_into(named, tree):
+    for name, t in named:
+        src = torch.tensor(np.asarray(_at(tree, name)))
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)}, module has {tuple(t.shape)}")
+        t.copy_(src.to(dtype=t.dtype))
+
+
+def load_params(module: nn.Module, tree) -> nn.Module:
+    """Copies a JAX param pytree into the module's parameters (in place)."""
+    _copy_into(module.named_parameters(), tree)
+    return module
+
+
+def load_state(module: nn.Module, tree) -> nn.Module:
+    """Copies a JAX state pytree into the module's buffers (in place)."""
+    _copy_into(module.named_buffers(), tree)
+    return module
+
+
+def adam_tree(opt: torch.optim.Adam, module: nn.Module) -> tuple:
+    """``opt``'s state over ``module``'s parameters as the JAX trainers'
+    optax state ``(clip state, (adam state, lr state))``: ``count`` int32,
+    ``mu`` and ``nu`` param pytrees (zeros before the first step)."""
+    named = list(module.named_parameters())
+    st = [opt.state.get(p, {}) for _, p in named]
+    count = int(st[0]["step"]) if st and "step" in st[0] else 0
+
+    def moments(key):
+        return _nested((n, _numpy(s[key]) if key in s else np.zeros(tuple(p.shape), np.float32))
+                       for (n, p), s in zip(named, st))
+
+    adam = {"count": np.int32(count), "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
+    return ((), (adam, ()))
+
+
+@torch.no_grad()
+def load_adam(opt: torch.optim.Adam, module: nn.Module, tree) -> torch.optim.Adam:
+    """Fills ``opt``'s state over ``module``'s parameters from an optax
+    state laid out as :func:`adam_tree` gives it."""
+    adam = tree[1][0]
+    count = float(np.asarray(adam["count"]))
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(_at(adam["mu"], name))).to(p),
+            "exp_avg_sq": torch.tensor(np.asarray(_at(adam["nu"], name))).to(p),
+        }
+    return opt

@@ -2,7 +2,9 @@
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``, as the CPU tests do. Asking for ``cuda`` where PyTorch
-sees no card raises: nothing falls back to the CPU.
+sees no card raises: nothing falls back to the CPU. On the card, f32
+matmuls stay f32 (no TF32): the networks agree with the CPU and with the
+JAX package's f32 reference.
 """
 
 from __future__ import annotations
@@ -20,4 +22,7 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
     return dev

@@ -33,6 +33,7 @@ from ..device import resolve
 from ..physics import maths
 from ..physics.engine import PhysicsState, default_solver, init_state
 from ..physics.model import ModelBuilder
+from ..physics.batched import BatchedStep
 from ..physics.perenv import PerEnvStep
 from ..physics.shapes import get_shape
 from .base import StepResult, draws, get_value, where
@@ -69,14 +70,17 @@ class CartPoleState(NamedTuple):
 
 class CartPole:
     """CartPole on the port's per-env physics step (fat rows, the fat-row sweep
-    kernel once per physics step: the scene has no contact pairs). The
-    sequential tier is a batch of one; a batch of B steps each world alike."""
+    kernel once per physics step: the scene has no contact pairs), or with
+    ``per_env_step=False`` on the batched step (slim env-last rows, the slim
+    sweep kernel), which the JAX package's ``vmap(env.step)`` reaches through
+    its custom_vmap rule. The sequential tier is a batch of one; a batch of B
+    steps each world alike."""
 
     observation_size = 7
     action_size = 1
 
     def __init__(self, params: CartPoleParams = CartPoleParams(), mt_seed: int | None = None,
-                 device=None):
+                 device=None, per_env_step: bool = True):
         self.params = params
         self.device = resolve(device)
         dev = self.device
@@ -121,7 +125,7 @@ class CartPole:
             (0, 0, 1), (0, 0, 1),
         )
         self.model = dataclasses.replace(b.finalize(), solver=default_solver())
-        self.physics_step = PerEnvStep(self.model, DT, dev)
+        self.physics_step = (PerEnvStep if per_env_step else BatchedStep)(self.model, DT, dev)
         self._spawn_pos = torch.tensor(
             [[0.0, self.chariot_pos, 10.0], [0.0, self.pendulum_pos, 10.0]], device=dev)
         self._ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
@@ -255,8 +259,10 @@ class CartPoleFactory:
     def __init__(self, parameters: dict[str, str]):
         self.parameters = parameters
 
-    def make(self, seed: int = 1234, mt_parity: bool = True, device=None) -> CartPole:
-        """The sequential tier's env (reset with one world)."""
+    def make(self, seed: int = 1234, mt_parity: bool = True, device=None,
+             per_env_step: bool = True) -> CartPole:
+        """The sequential tier's env (reset with one world) by default; the
+        batched trainers pass ``per_env_step=False`` for the batched step."""
         g = lambda k, d: get_value(self.parameters, k, d)  # noqa: E731
         return CartPole(
             CartPoleParams(
@@ -270,5 +276,5 @@ class CartPoleFactory:
                 # reference key is the typo'd "mas_steps" (env_factory.cpp:56)
                 max_steps=g("mas_steps", 60 * 60),
             ),
-            mt_seed=seed if mt_parity else None, device=device,
+            mt_seed=seed if mt_parity else None, device=device, per_env_step=per_env_step,
         )

@@ -29,6 +29,7 @@ from ..device import resolve
 from ..physics import maths
 from ..physics.engine import PhysicsState, default_solver, init_state
 from ..physics.model import ModelBuilder
+from ..physics.batched import BatchedStep
 from ..physics.perenv import PerEnvStep
 from ..physics.shapes import get_shape
 from .base import StepResult, draws, get_value, where
@@ -76,14 +77,17 @@ def _quat_axis(q):
 
 class CartPole3d:
     """CartPole3d on the port's per-env physics step (fat rows, the fat-row sweep
-    kernel once per physics step: the scene has no contact pairs). The
-    sequential tier is a batch of one; a batch of B steps each world alike."""
+    kernel once per physics step: the scene has no contact pairs), or with
+    ``per_env_step=False`` on the batched step (slim env-last rows, the slim
+    sweep kernel), which the JAX package's ``vmap(env.step)`` reaches through
+    its custom_vmap rule. The sequential tier is a batch of one; a batch of B
+    steps each world alike."""
 
     observation_size = 28
     action_size = 2
 
     def __init__(self, params: CartPole3dParams = CartPole3dParams(),
-                 mt_seed: int | None = None, device=None):
+                 mt_seed: int | None = None, device=None, per_env_step: bool = True):
         self.params = params
         self.device = resolve(device)
         dev = self.device
@@ -138,7 +142,7 @@ class CartPole3d:
         )
         b.add_p2p(self.cart_z, self.pole, (0, 0.125, 0), (0, -0.5 + 0.5 / 4.0, 0))
         self.model = dataclasses.replace(b.finalize(), solver=default_solver())
-        self.physics_step = PerEnvStep(self.model, DT, dev)
+        self.physics_step = (PerEnvStep if per_env_step else BatchedStep)(self.model, DT, dev)
         self._movers = torch.tensor([self.cart_x, self.cart_z, self.pole], device=dev)
         self._spawn_pos = torch.tensor(np.array([cart_x_pos, cart_z_pos, pole_pos], np.float32),
                                        device=dev)
@@ -300,8 +304,10 @@ class CartPole3dFactory:
     def __init__(self, parameters: dict[str, str]):
         self.parameters = parameters
 
-    def make(self, seed: int = 1234, mt_parity: bool = True, device=None) -> CartPole3d:
-        """The sequential tier's env (reset with one world)."""
+    def make(self, seed: int = 1234, mt_parity: bool = True, device=None,
+             per_env_step: bool = True) -> CartPole3d:
+        """The sequential tier's env (reset with one world) by default; the
+        batched trainers pass ``per_env_step=False`` for the batched step."""
         g = lambda k, d: get_value(self.parameters, k, d)  # noqa: E731
         return CartPole3d(
             CartPole3dParams(
@@ -315,5 +321,5 @@ class CartPole3dFactory:
                 pole_mass=g("pole_mass", 1.0),
                 max_steps=g("max_steps", 60 * 60),
             ),
-            mt_seed=seed if mt_parity else None, device=device,
+            mt_seed=seed if mt_parity else None, device=device, per_env_step=per_env_step,
         )

@@ -387,8 +387,12 @@ class RobotWalkFactory:
     def __init__(self, parameters: dict[str, str]):
         self.parameters = parameters
 
-    def make(self, seed: int = 1234, mt_parity: bool = True, device=None) -> RobotWalk:
-        """The sequential tier: one world stepped by the per-env step.
+    def make(self, seed: int = 1234, mt_parity: bool = True, device=None,
+             per_env_step: bool = True) -> RobotWalk:
+        """The sequential tier by default: one world stepped by the per-env
+        step (the CLI's ``run``). The batched trainers and the greedy eval
+        pass ``per_env_step=False`` for the batched step; in the JAX package
+        ``vmap(env.step)`` reaches it through the custom_vmap rule.
         ``mt_parity`` seeds the reference's std::mt19937 reset stream; without
         it, resets draw from the ``torch.Generator`` passed to reset/step."""
         g = lambda k, d: get_value(self.parameters, k, d)  # noqa: E731
@@ -401,5 +405,5 @@ class RobotWalkFactory:
                 minimal_velocity=g("minimal_velocity", 0.1),
                 reset_frames=g("reset_frames", 30),
             ),
-            mt_seed=seed if mt_parity else None, device=device, per_env_step=True,
+            mt_seed=seed if mt_parity else None, device=device, per_env_step=per_env_step,
         )

@@ -8,7 +8,9 @@ kernel #2 also on the spider's real per-env rows (velocity sweep and push
 pass, both orders, B = 1 and 64), on cartpole's and cartpole3d's rows (a
 ragged last stage), on rows built to reach each of its forwarding cases,
 with one iteration, and with the fewest stages a plan can take;
-the launch plans' shared-memory sums and occupancy against the kernels'.
+the launch plans' shared-memory sums and occupancy against the kernels';
+kernel #1 on the cartpoles' batched step (card against CPU) and the CLI's
+batched PPO ``train`` on the card.
 
 They skip where torch sees no card. This file imports no JAX, so it also
 runs on a host where JAX is not installed: ``python -m pytest --noconftest
@@ -653,3 +655,50 @@ def test_fat_plan_matches_the_kernels_shared_memory_sum():
         with pytest.raises(ValueError, match="no launch plan fits"):
             tsf.solver_sweep(*args, m, 1)
     assert tsf.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [4, 64])
+@pytest.mark.parametrize("name", ["cartpole", "cartpole3d"])
+def test_batched_cartpole_on_card_matches_cpu(name, b):
+    """The cartpoles on the batched step (the tier of ``train --num_envs``):
+    kernel #1 on their few joint rows (B = 4 takes plain loads, 64 TMA);
+    reset and 12 steps of fixed actions on the card against the same on the
+    CPU (the slim sweep's plain version) within chip_smoke's STEP_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.cartpole import CartPoleFactory
+    from evomotion_tpu_torch.envs.cartpole3d import CartPole3dFactory
+
+    fac = (CartPoleFactory if name == "cartpole" else CartPole3dFactory)({})
+    envs = {d: fac.make(3, device=d, per_env_step=False) for d in ("cuda", "cpu")}
+    acts = torch.as_tensor(np.random.default_rng(0).uniform(
+        -1, 1, (12, b, envs["cpu"].action_size)).astype(np.float32))
+    out = {}
+    for d, env in envs.items():
+        state, res = env.reset(b)
+        obs = [res.obs]
+        for a in acts:
+            state, res = env.step(state, a.to(d))
+            obs.append(res.obs)
+        out[d] = torch.stack(obs).cpu()
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err <= chip_smoke.STEP_TOL, err
+
+
+@pytest.mark.gpu
+def test_cli_batched_train_on_card(tmp_path):
+    """``cli ... cartpole ppo_gae --num_envs 64 ... train`` on the card: two
+    saves whose components load back with finite weights and Adam counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch import cli
+
+    rc = cli.main(["cli", "cartpole", "ppo_gae", "--num_envs", "64", "--agent_parameters",
+                   "hidden_size=32", "horizon=16", "epoch=2", "train", str(tmp_path), "-e",
+                   "2", "-n", "2"])
+    assert rc == 0
+    with np.load(tmp_path / "save_1" / "critic_optimizer.npz") as f:
+        assert int(f["1/0/count"]) == 8
+    with np.load(tmp_path / "save_1" / "actor.npz") as f:
+        assert all(np.isfinite(f[k]).all() for k in f)

@@ -1,5 +1,6 @@
 """The port runs where JAX is not installed: importing it, every module
-under it (the ``tools`` subpackage of profilers too), and chip_smoke.py
+under it (the ``tools`` subpackage of profilers and walker tools, the
+networks and the trainer too), and chip_smoke.py
 must import neither ``jax`` nor any module of the JAX package
 ``evomotion_tpu``."""
 
@@ -24,7 +25,15 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert {"evomotion_tpu_torch.tools.prof_kernel",
-        "evomotion_tpu_torch.tools.prof_step"} <= set(names), names
+        "evomotion_tpu_torch.tools.prof_step",
+        "evomotion_tpu_torch.tools.eval_walk",
+        "evomotion_tpu_torch.tools.train_walk",
+        "evomotion_tpu_torch.networks.modules",
+        "evomotion_tpu_torch.networks.distributions",
+        "evomotion_tpu_torch.train.checkpoint",
+        "evomotion_tpu_torch.train.metrics",
+        "evomotion_tpu_torch.train.profiling",
+        "evomotion_tpu_torch.train.ppo_batched"} <= set(names), names
 """
 
 
