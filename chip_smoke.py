@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
-Six paths run, each with its kernel: the batched spider ``robot_walk``
+Nine paths run, each with its kernel: the batched spider ``robot_walk``
 rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``), in
 the canonical and in the ``scheduled`` row order (the slim sweep's groups
 mode); the CLI's sequential ``run`` (one world, the per-env physics step,
@@ -12,8 +12,9 @@ the fat-row sweep ``kernels/csrc/solver_sweep.cu`` twice per spider step);
 the two profilers of ``evomotion_tpu_torch.tools`` (the env-last fat-row
 sweep ``kernels/csrc/solver_sweep_envlast.cu``); the greedy eval of the
 committed walker (``tools.eval_walk``) and the CLI's batched PPO ``train``,
-both on the batched step and the slim sweep. Phases, each printed with its
-seconds:
+both on the batched step and the slim sweep; the CLI's batched CrossQ and
+SAC ``train`` (the slim sweep) and their sequential ``train`` then ``run``
+on cartpole (the fat-row sweep). Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
@@ -88,7 +89,43 @@ seconds:
     printed; the slim sweep counted as in 14, and its kernel on the run's
     first call against its plain version within TOL; then a 200-step
     greedy eval of the saved actor at 16 envs;
-16. the kernels line and the last line (one JSON object each).
+16. offpolicy update check: CrossQ and SAC updates at the walker config's
+    widths (obs 371, action 12, actor 256, critics 1,024, batch 256) on the
+    card and on the CPU from the same seeded init, batches and uniforms: a
+    first update (the losses and every tensor of the agent's carry but the
+    parameters within UPDATE_TOL, the parameters within 2 lr: Adam's first
+    step is the sign of each gradient, and a few are at f32 noise), then a
+    second from one shared state (everything within UPDATE_TOL: params, Adam
+    moments and counts, BatchRenorm statistics, target critics, log_alpha);
+    the card's ms, device launches and device time per update;
+17. cross_q train: ``cli.main([... "robot_walk", "cross_q", "--num_envs",
+    "256", ... "train", ...])`` for 3 iterations with the JAX tier's walker
+    config (``runs/walk_r4_crossq_s1234/config.json``: 64 steps per
+    iteration, actor 256, BatchRenorm critics 1,024, batch 256, 4 updates
+    per env step, a 2^20 ring, the nan guard) and ``EVOMOTION_PROFILE=1``:
+    finite losses, the ring filled with 3 x 16,384 transitions, moved actor
+    tensors, ``save_0`` loading back equal into a fresh agent on the card;
+    rollout and update ms per iteration, env-steps/s and gradient steps/s
+    printed; the slim sweep counted as in 15 and held against its plain
+    version on the run's first call; then a 200-step greedy eval of the
+    saved actor at 16 envs through ``tools.eval_walk``'s ``crossq`` tier;
+18. soft_actor_critic train: the same with SAC (no eval);
+19. offpolicy sequential: ``cli cartpole soft_actor_critic ... train -e 2
+    -n 1`` (one env, the per-env step) then ``run`` of ``save_0``, and the
+    same with ``cross_q``: finite meters and returns; the fat-row sweep
+    launched once per physics step (counts set to 0 just before each
+    command, read just after), each command's first call held against its
+    plain version;
+20. c2 reading (not a gate but for the resume): one seeded batched state at
+    B=256 stepped twice, by default and under
+    ``torch.use_deterministic_algorithms(True)`` (largest difference,
+    bit-equal or not, the op it raises on); then the full-state resume of
+    one CrossQ iteration (walker widths, ring cut to 4 blocks) in the
+    deterministic mode where it made the step bit-equal: the loaded state
+    equal to the saved one, and one more iteration from each within
+    UPDATE_TOL;
+21. the off-policy readings line, the kernels line and the last line (one
+    JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -1038,6 +1075,69 @@ PROGRESS = re.compile(r"save 0 actor=(\S+) critic=(\S+) r/step=(\S+) ([\d,]+) en
 PROFILE = re.compile(r"(\w+): ([\d.]+)s/(\d+)x")
 
 
+def profiled_train(argv, label, env, iters, horizon, dev, cpu, cap):
+    """Runs the CLI's batched ``train`` (``argv``, ``iters`` iterations of
+    ``horizon`` steps on ``env``'s model) with ``EVOMOTION_PROFILE=1`` and
+    prints its output. The slim sweep's counts are set to 0 just before and
+    read just after: one launch per physics step (the reset's settle steps
+    and the rollouts'); the first call's inputs go through the kernel and
+    its plain version after the run, which must agree within TOL. The
+    progress lines' losses must be finite and each StepTimer phase must have
+    run once per iteration. Returns (progress lines, ms per iteration by
+    phase, env-steps/s incl. the update, launches, largest kernel error)."""
+    import torch
+
+    from evomotion_tpu_torch import cli
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    print(f"{label}: " + " ".join(argv), flush=True)
+    old = os.environ.get("EVOMOTION_PROFILE")
+    os.environ["EVOMOTION_PROFILE"] = "1"
+    buf = io.StringIO()
+    sp.KERNEL.launches = 0
+    cap.calls = 0
+    cap.arm(limit=1)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=dev)
+        if not cpu:
+            torch.cuda.synchronize()
+    finally:
+        cap.armed = False
+        if old is None:
+            del os.environ["EVOMOTION_PROFILE"]
+        else:
+            os.environ["EVOMOTION_PROFILE"] = old
+    launches, calls = sp.KERNEL.launches, cap.calls
+    n_envs = argv[argv.index("--num_envs") + 1]
+    kern_err = captured_check(cap.inputs, cpu, f"{label} sweep, B={n_envs} {env.model.row_order}")
+    text = buf.getvalue()
+    for line in text.replace("\r", "\n").splitlines():
+        if line.strip():
+            print(f"{label}: {line.strip()}", flush=True)
+    want = env.settle_total + iters * horizon
+    print(f"{label}: sweep calls {calls}, kernel launches {launches}, physics steps {want}",
+          flush=True)
+    if rc != 0:
+        fail(f"{label}: cli returned {rc}")
+    if calls != want or (not cpu and launches != want):
+        fail(f"{label}: expected {want} slim sweep launches, got {launches} launches of "
+             f"{calls} calls")
+    prog = PROGRESS.findall(text)
+    losses = [float(x) for m in prog for x in m[:3]]
+    if not prog or prog[-1][4] != str(iters) or not all(map(math.isfinite, losses)):
+        fail(f"{label}: progress lines {prog}")
+    prof = {k: (float(sec), int(n)) for k, sec, n in PROFILE.findall(
+        text[text.index("[profile]"):])}
+    rate = float(re.search(r"\(([\d,]+) env-steps/s incl\. update\)", text)
+                 .group(1).replace(",", ""))
+    if {k: n for k, (_, n) in prof.items()} != dict.fromkeys(
+            ("rollout", "train_iter", "update"), iters):
+        fail(f"{label}: profile {prof}")
+    ms = {k: sec / n * 1e3 for k, (sec, n) in prof.items()}
+    return prog, ms, rate, launches, kern_err
+
+
 def ppo_train(args, dev, cpu, card, cap):
     """Phase 15, the CLI's batched ``train``: ``cli.main(["cli",
     "robot_walk", "ppo_gae", "--num_envs", ..., "train", out, "-e", "3",
@@ -1054,9 +1154,8 @@ def ppo_train(args, dev, cpu, card, cap):
     import numpy as np
     import torch
 
-    from evomotion_tpu_torch import cli, convert
+    from evomotion_tpu_torch import convert
     from evomotion_tpu_torch.envs.robot import RobotWalkFactory
-    from evomotion_tpu_torch.kernels import sweep as sp
     from evomotion_tpu_torch.networks.modules import Actor, Critic
     from evomotion_tpu_torch.tools import eval_walk as ew
     from evomotion_tpu_torch.train.checkpoint import load_component
@@ -1072,51 +1171,8 @@ def ppo_train(args, dev, cpu, card, cap):
                 str(args.seed), "--agent_parameters", f"hidden_size={hidden}",
                 f"horizon={horizon}", f"epoch={epoch}", "learning_rate=1e-3", "train", out,
                 "-e", str(iters), "-n", "1"]
-        print("ppo train: " + " ".join(argv), flush=True)
-        old = os.environ.get("EVOMOTION_PROFILE")
-        os.environ["EVOMOTION_PROFILE"] = "1"
-        buf = io.StringIO()
-        sp.KERNEL.launches = 0
-        cap.calls = 0
-        cap.arm(limit=1)
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(argv, device=dev)
-            if not cpu:
-                torch.cuda.synchronize()
-        finally:
-            cap.armed = False
-            if old is None:
-                del os.environ["EVOMOTION_PROFILE"]
-            else:
-                os.environ["EVOMOTION_PROFILE"] = old
-        launches, calls = sp.KERNEL.launches, cap.calls
-        kern_err = captured_check(cap.inputs, cpu, f"ppo train sweep, B={n_envs} "
-                                  f"{env.model.row_order}")
-        text = buf.getvalue()
-        for line in text.replace("\r", "\n").splitlines():
-            if line.strip():
-                print(f"ppo train: {line.strip()}", flush=True)
-        want = env.settle_total + iters * horizon
-        print(f"ppo train: sweep calls {calls}, kernel launches {launches}, physics steps "
-              f"{want}", flush=True)
-        if rc != 0:
-            fail(f"ppo train: cli returned {rc}")
-        if calls != want or (not cpu and launches != want):
-            fail(f"ppo train: expected {want} slim sweep launches, got {launches} launches "
-                 f"of {calls} calls")
-        prog = PROGRESS.findall(text)
-        losses = [float(x) for m in prog for x in m[:3]]
-        if not prog or prog[-1][4] != str(iters) or not all(map(math.isfinite, losses)):
-            fail(f"ppo train: progress lines {prog}")
-        prof = {k: (float(sec), int(n)) for k, sec, n in PROFILE.findall(
-            text[text.index("[profile]"):])}
-        rate = float(re.search(r"\(([\d,]+) env-steps/s incl\. update\)", text)
-                     .group(1).replace(",", ""))
-        if {k: n for k, (_, n) in prof.items()} != dict.fromkeys(
-                ("rollout", "train_iter", "update"), iters):
-            fail(f"ppo train: profile {prof}")
-        ms = {k: sec / n * 1e3 for k, (sec, n) in prof.items()}
+        prog, ms, rate, launches, kern_err = profiled_train(argv, "ppo train", env, iters,
+                                                            horizon, dev, cpu, cap)
         print(f"ppo train [{card}]: per iteration ({horizon} steps x {n_envs} envs, "
               f"{epoch} epochs): rollout {ms['rollout']:.0f} ms, update {ms['update']:.0f} ms, "
               f"iteration {ms['train_iter']:.0f} ms (StepTimer, 10 ms resolution); "
@@ -1165,6 +1221,442 @@ def ppo_train(args, dev, cpu, card, cap):
           f"{r.steps_s / h_smoke * 1e3:.3f} ms per env step [{card}]", flush=True)
     done("ppo train", t0)
     return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err}
+
+
+# |card - CPU| bound on one off-policy update at full width: the four losses
+# and every tensor the update moves (params, Adam moments and counts,
+# BatchRenorm statistics, target critics, log_alpha); f32 matmuls on both
+# (no TF32), summed in another order, as for the walker's actor (POLICY_TOL)
+UPDATE_TOL = 1e-4
+# the off-policy walker config, runs/walk_r4_crossq_s1234/config.json (the
+# defaults of tools/train_walk_offpolicy.py): 256 envs x 64 steps, actor 256,
+# BatchRenorm critics 1,024, batch 256, 4 updates per env step, a 2^20 ring,
+# the nan guard on. Only the iteration count is cut: 3 against 12,000.
+OFF_ENVS, OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH, OFF_RING = 256, 256, 1024, 256, 4, 1 << 20
+OFF_ITERS = 3
+OFF_EVAL_ENVS, OFF_EVAL_STEPS = 16, 200
+# agent parameters of the sequential cartpole train (strict keys, no
+# defaults); episodes capped at 300 steps
+SEQ_TRAIN_PARAMS = ["actor_hidden_size=64", "critic_hidden_size=64", "batch_size=64", "epoch=1",
+                    "learning_rate=1e-3", "gamma=0.99", "replay_buffer_size=100000",
+                    "train_every=1"]
+
+
+def _offpolicy_agent(algo, seed, s, a, actor, critic, batch, device):
+    from evomotion_tpu_torch.agents.cross_q import CrossQAgent
+    from evomotion_tpu_torch.agents.soft_actor_critic import SoftActorCriticAgent
+
+    args = (seed, s, a, actor, critic, batch, 1, 3e-4, 0.99)
+    if algo == "soft_actor_critic":
+        return SoftActorCriticAgent(*args, 0.005, 1, 1, device=device)
+    return CrossQAgent(*args, 1, 1, device=device)
+
+
+def _tree_errs(a, b):
+    """{key: max |a - b|} over two flattened carries."""
+    import numpy as np
+
+    return {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in b}
+
+
+def offpolicy_update_check(args, dev, cpu, card):
+    """Phase 16: CrossQ and SAC updates at the walker config's widths (obs
+    371, action 12, actor 256, critics 1,024, batch 256) on the card and on
+    the CPU from the same seeded init, batches and uniforms.
+
+    Update 1, from the fresh init: the losses and every tensor of the
+    agent's carry but the parameters within UPDATE_TOL (Adam moments and
+    counts, BatchRenorm statistics, log_alpha's moments). Adam's first step
+    is lr * g / (|g| + eps), the sign of g, for every element whose gradient
+    is above 1e-8; among 5 million gradients a few dozen are that small by
+    chance (1e-9 to 1e-7 against a largest of ~1 to 60) and differ between
+    the card and the CPU by their f32 rounding (~1e-7), so such an element
+    steps up to lr either way: the parameters are held within 2 lr after
+    update 1. Update 2, from one state (the CPU's after update 1, loaded
+    into the card's agent) on a second batch: Adam's moments now hold the
+    first gradients, a tiny second gradient is no longer amplified, and the
+    losses and every tensor of the carry, parameters included, must agree
+    within UPDATE_TOL. Then the card's ms per update (CUDA events over 5 more
+    updates), and its device launches and device time per update
+    (``torch.profiler`` over 3 more)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.tools._profile import device_events
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    t0 = phase("offpolicy update check")
+    env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev, per_env_step=False)
+    s, a = env.observation_size, env.action_size
+    actor, critic, b = (16, 16, 8) if cpu else (OFF_ACTOR, OFF_CRITIC, OFF_BATCH)
+    lr = 3e-4
+    rng = np.random.default_rng(args.seed)
+
+    def make_batch():
+        x = [rng.standard_normal((b, s)), rng.uniform(-1, 1, (b, a)),
+             rng.standard_normal((b, 1)), rng.uniform(size=(b, 1)) < 0.05,
+             rng.standard_normal((b, s)), rng.uniform(size=(b, a)), rng.uniform(size=(b, a))]
+        return [torch.tensor(np.asarray(y, np.float32)) for y in x]
+
+    batches = [make_batch(), make_batch()]
+    out = {}
+    for algo in ("cross_q", "soft_actor_critic"):
+        agents = [_offpolicy_agent(algo, args.seed, s, a, actor, critic, b, d)
+                  for d in (dev, "cpu")]
+        params = {str(i) for i, c in enumerate(agents[0].CARRY)
+                  if not c.endswith(("_optimizer", "_state"))}
+        res = {}
+        for n_upd, batch in enumerate(batches, 1):
+            if n_upd == 2:
+                agents[0].load_carry_tree(agents[1].carry_tree())
+            losses = [ag.update([x.to(ag.device) for x in batch[:5]],
+                                *(x.to(ag.device) for x in batch[5:])).cpu() for ag in agents]
+            loss_err = float((losses[0] - losses[1]).abs().max())
+            errs = _tree_errs(_flatten(agents[0].carry_tree()), _flatten(agents[1].carry_tree()))
+            p_errs = {k: v for k, v in errs.items() if k.split("/")[0] in params}
+            rest = {k: v for k, v in errs.items() if k not in p_errs}
+            held = rest if n_upd == 1 else errs
+            worst, p_worst = max(held, key=held.get), max(p_errs, key=p_errs.get)
+            print(f"{algo} update {n_upd}, card vs CPU ({agents[0].count_parameters():,} "
+                  f"parameters, batch {b}): losses {[round(x, 6) for x in losses[1].tolist()]},"
+                  f" max |diff| {loss_err:.3e}; carry max |diff| {held[worst]:.3e} at {worst} "
+                  f"over {len(held)} tensors (tol {UPDATE_TOL:g}); parameters {p_errs[p_worst]:.3e}"
+                  f" at {p_worst}" + (f" (held within 2 lr = {2 * lr:g})" if n_upd == 1 else ""),
+                  flush=True)
+            p_tol = 2 * lr * (1 + 1e-3) if n_upd == 1 else UPDATE_TOL
+            if not (loss_err <= UPDATE_TOL and held[worst] <= UPDATE_TOL
+                    and p_errs[p_worst] <= p_tol):
+                fail(f"{algo} update {n_upd} on the card disagrees with the CPU: losses "
+                     f"{loss_err}, {worst} {held[worst]}, {p_worst} {p_errs[p_worst]}")
+            res[f"update_{n_upd}"] = {"loss_err": loss_err, "carry_err": held[worst],
+                                      "param_err": p_errs[p_worst]}
+        ms = launches = busy = None
+        if not cpu:
+            card_batch = [x.to(dev) for x in batches[1]]
+
+            def one_update(ag=agents[0]):
+                ag.update(card_batch[:5], *card_batch[5:])
+
+            ms = cuda_ms(one_update, 5)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    one_update()
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            launches, busy = len(events) / 3, sum(d for _, d in events) / 3e3
+            print(f"{algo}: {ms:.3f} ms per update on the card (CUDA events, 5 updates); "
+                  f"{launches:.0f} device launches (kernels, copies, fills) and {busy:.3f} ms "
+                  f"of device time per update (torch.profiler, 3 updates): the device busy "
+                  f"{100 * busy / ms:.1f}% [{card}]", flush=True)
+        out[algo] = {**res, "ms_per_update": ms, "launches_per_update": launches,
+                     "device_ms_per_update": busy}
+    done("offpolicy update check", t0)
+    return out
+
+
+def offpolicy_train(args, dev, cpu, card, cap, algo):
+    """Phases 17-18, the CLI's batched off-policy ``train``: ``cli.main(["cli",
+    "robot_walk", algo, "--num_envs", "256", ..., "train", out, "-e", "3",
+    "-n", "1"])`` with the walker config (OFF_*) and ``EVOMOTION_PROFILE=1``.
+    The losses must be finite, the ring must hold 3 x 16,384 transitions,
+    every actor tensor must have moved from its seeded init, and ``save_0``
+    must load back equal into a fresh agent on the card. The slim sweep's
+    counts are set to 0 just before and read just after: one launch per
+    physics step; the first call's inputs go through the kernel and its
+    plain version after the run. For CrossQ, a 200-step greedy eval of the
+    saved actor at 16 envs through ``tools.eval_walk``'s ``crossq`` tier."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.networks.modules import Actor
+    from evomotion_tpu_torch.tools import eval_walk as ew
+    from evomotion_tpu_torch.train import offpolicy_batched as ob
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    label = f"{algo} train"
+    t0 = phase(label)
+    n_envs, actor, critic, batch, epoch, horizon, ring = (
+        (2, 16, 16, 4, 1, 2, 64) if cpu
+        else (OFF_ENVS, OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH, 64, OFF_RING))
+    kv = {"hidden_size": actor, "critic_hidden_size": critic, "batch_size": batch,
+          "epoch": epoch, "learning_rate": 3e-4, "gamma": 0.99, "tau": 0.005, "train_every": 1,
+          "horizon": horizon, "replay_buffer_size": ring, "nan_guard": "true"}
+    states = []
+    init = ob.BatchedOffPolicy.init
+
+    def kept_init(self):
+        states.append(init(self))
+        return states[-1]
+
+    with tempfile.TemporaryDirectory() as out, small_walker(cpu):
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
+                str(args.seed), "--agent_parameters", *(f"{k}={v}" for k, v in kv.items()),
+                "train", out, "-e", str(OFF_ITERS), "-n", "1"]
+        ob.BatchedOffPolicy.init = kept_init
+        try:
+            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, OFF_ITERS,
+                                                                horizon, dev, cpu, cap)
+        finally:
+            ob.BatchedOffPolicy.init = init
+        state = states[0]
+        if state.ring.filled != OFF_ITERS * horizon * n_envs or state.iteration != OFF_ITERS:
+            fail(f"{label}: ring filled {state.ring.filled} after {state.iteration} iterations")
+        grads = horizon * epoch  # updates per iteration (train_every 1)
+        grad_rate = grads / (ms["train_iter"] / 1e3)
+        grad_rate_update = grads / (ms["update"] / 1e3)
+        print(f"{label} [{card}]: per iteration ({horizon} steps x {n_envs} envs, {grads} "
+              f"gradient steps of batch {batch}): rollout {ms['rollout']:.0f} ms, update "
+              f"{ms['update']:.0f} ms, iteration {ms['train_iter']:.0f} ms (StepTimer, 10 ms "
+              f"resolution); {rate:.0f} env-steps/s incl. the update; {grad_rate:.1f} "
+              f"gradient steps/s ({grad_rate_update:.1f} within the update phase); ring "
+              f"filled {state.ring.filled} of {state.ring.obs.shape[0]}; last actor loss "
+              f"{prog[-1][0]}, critic loss {prog[-1][1]}", flush=True)
+        del states[:], state
+
+        save = os.path.join(out, "save_0")
+        s, a = env.observation_size, env.action_size
+        start = Actor(s, a, actor, torch.Generator().manual_seed(args.seed))
+        agent = _offpolicy_agent(algo, 123, s, a, actor, critic, batch, dev)
+        agent.load(save)
+        moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
+                 for (n, p), q in zip(agent.actor.named_parameters(), start.parameters())}
+        if not all(x > 0 and math.isfinite(x) for x in moved.values()):
+            fail(f"{label}: actor params did not all move from their init: {moved}")
+        print(f"{label}: actor params moved from their init by max |diff| "
+              f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}",
+              flush=True)
+        for c in agent.SAVE:
+            with np.load(os.path.join(save, f"{c}.npz")) as raw:
+                got = _flatten(agent.tree(c))
+                if got.keys() != set(raw.keys()) or not all(
+                        np.array_equal(got[k], raw[k]) for k in got):
+                    fail(f"{label}: save_0 {c} did not load back equal")
+        count = int(np.load(os.path.join(save, "actor_optimizer.npz"))["0/count"])
+        print(f"{label}: save_0 ({len(agent.SAVE)} components) loads back equal on the card, "
+              f"Adam count {count}", flush=True)
+        if algo == "cross_q":
+            n_smoke, h_smoke = (2, 3) if cpu else (OFF_EVAL_ENVS, OFF_EVAL_STEPS)
+            policy = ew.load_policy("crossq", save, s, a, actor, dev)
+            r = ew.greedy_eval(env, policy, n_smoke, h_smoke,
+                               torch.Generator(device=dev).manual_seed(args.seed))
+            if not (bool(torch.isfinite(r.ret).all()) and int(r.steps.max()) <= h_smoke):
+                fail(f"{label}: the greedy eval of the trained actor gave non-finite returns")
+            print(f"{label}: greedy eval of save_0's actor (eval_walk crossq tier), {n_smoke} "
+                  f"envs x {h_smoke} steps: mean valid steps {float(r.steps.float().mean()):.2f}"
+                  f", mean return {float(r.ret.mean()):.3f}, "
+                  f"{r.steps_s / h_smoke * 1e3:.3f} ms per env step [{card}]", flush=True)
+    done(label, t0)
+    return {"launches": launches, "ms": ms, "rate": rate, "grad_rate": grad_rate,
+            "err": kern_err}
+
+
+def offpolicy_sequential(args, dev, cpu, card, fat_cap):
+    """Phase 19, the sequential tier with learning agents: for SAC and then
+    CrossQ, ``cli.main(["cli", "cartpole", algo, ..., "train", out, "-e",
+    "2", "-n", "1"])`` (one env on the per-env step, an update per env step
+    once the buffer holds a batch), then ``run`` of ``save_0``, one
+    episode. The fat-row sweep's counts and a count of per-env physics steps
+    are set to 0 just before each command and read just after: one launch
+    per physics step; the first call of each command is held against its
+    plain version."""
+    import tempfile
+
+    import torch
+
+    from evomotion_tpu_torch import cli
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+    from evomotion_tpu_torch.physics import perenv
+
+    t0 = phase("offpolicy sequential")
+    steps = [0]
+    run_once = perenv.PerEnvStep._run
+
+    def counted(self, *a):
+        steps[0] += 1
+        return run_once(self, *a)
+
+    perenv.PerEnvStep._run = counted
+    total, errs = 0, []
+    try:
+        for algo in ("soft_actor_critic", "cross_q"):
+            params = [f"seed={args.seed}", *SEQ_TRAIN_PARAMS] + (
+                ["tau=0.005"] if algo == "soft_actor_critic" else [])
+            base = ["cli", "cartpole", algo, "--env_seed", str(args.seed), "--agent_parameters",
+                    *params, "--env_parameters", "mas_steps=300"]
+            with tempfile.TemporaryDirectory() as out:
+                for what, argv in (("train", base + ["train", out, "-e", "2", "-n", "1"]),
+                                   ("run", base + ["run", os.path.join(out, "save_0"),
+                                                   "--episodes", "1"])):
+                    label = f"cartpole {algo} {what}"
+                    buf = io.StringIO()
+                    fat_cap.arm(limit=1)
+                    sf.KERNEL.launches = fat_cap.calls = steps[0] = 0
+                    ts = time.perf_counter()
+                    with contextlib.redirect_stdout(buf):
+                        rc = cli.main(argv, device=dev)
+                    if not cpu:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - ts
+                    n_phys, launches, calls = steps[0], sf.KERNEL.launches, fat_cap.calls
+                    fat_cap.armed = False
+                    text = buf.getvalue().replace("\r", "\n")
+                    last = [x.strip() for x in text.splitlines() if x.strip()][-1:]
+                    print(f"{label}: {last[0] if last else '(no output)'}", flush=True)
+                    print(f"{label}: {n_phys} physics steps, fat sweep calls {calls}, kernel "
+                          f"launches {launches}, {wall:.2f} s, {wall / max(n_phys, 1) * 1e3:.2f}"
+                          f" ms per physics step (host clock) [{card}]", flush=True)
+                    if rc != 0:
+                        fail(f"{label}: cli returned {rc}")
+                    if n_phys < 1 or calls != n_phys or (not cpu and launches != calls):
+                        fail(f"{label}: expected one fat sweep launch per physics step, got "
+                             f"{launches} launches / {calls} calls in {n_phys} physics steps")
+                    if what == "train":
+                        meters = dict(re.findall(r"(\w+) = (\S+)", text.splitlines()[-1]
+                                                 if text.strip() else ""))
+                        if not meters or not all(math.isfinite(float(v))
+                                                 for v in meters.values()):
+                            fail(f"{label}: meters {meters}")
+                        if not os.path.exists(os.path.join(out, "save_0", "actor.npz")):
+                            fail(f"{label}: no save_0")
+                    else:
+                        m = EPISODE_LINE.match(last[0] if last else "")
+                        if not m or not math.isfinite(float(m.group(3))):
+                            fail(f"{label}: episode line {last}")
+                    total += launches
+                    inp, fat_cap.captured = fat_cap.inputs, []
+                    _, err, _ = fat_check(inp, cpu, f"{label}: first sweep call")
+                    errs.append(err)
+    finally:
+        perenv.PerEnvStep._run = run_once
+        fat_cap.armed = False
+    done("offpolicy sequential", t0)
+    return {"launches": total, "err": max(errs)}
+
+
+def _all_tensors(x):
+    if isinstance(x, tuple):
+        return [t for y in x for t in _all_tensors(y)]
+    return [x]
+
+
+def _max_diff(xs, ys):
+    return max(float((x.detach().double() - y.detach().double()).abs().max())
+               for x, y in zip(xs, ys))
+
+
+@contextlib.contextmanager
+def deterministic(on):
+    """While open, ``torch.use_deterministic_algorithms(True)`` with the
+    cuBLAS workspace setting that mode asks for, when ``on``."""
+    import torch
+
+    if not on:
+        yield
+        return
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+
+
+def c2_reading(args, dev, cpu, card):
+    """Phase 20, a reading (ROADMAP C2): is the card's batched step
+    reproducible? One seeded batched state at B=256 stepped twice with the
+    same action, by default and under torch.use_deterministic_algorithms
+    (the op it raises on, if any); then the full-state resume of one CrossQ
+    iteration at the walker widths (ring cut to 4 blocks), in the
+    deterministic mode where that mode made the step bit-equal (by default,
+    the spider's chaos carries the step's rounding to O(10) differences over
+    an iteration): the state loaded by ``load_full`` must equal the saved
+    one, and one iteration from each must agree within UPDATE_TOL."""
+    import tempfile
+
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.train.offpolicy_batched import BatchedOffPolicy, OffPolicyConfig
+
+    t0 = phase("c2 reading")
+    n = 2 if cpu else OFF_ENVS
+    out = {}
+    with small_walker(cpu):
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        state, _ = env.reset(n, torch.Generator(device=dev).manual_seed(args.seed))
+        action = torch.rand((n, env.action_size), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed)) * 2 - 1
+
+        def twice():
+            runs = [_all_tensors(env.step(state, action, torch.Generator(device=dev)
+                                          .manual_seed(1))) for _ in range(2)]
+            return _max_diff(*runs), all(torch.equal(x, y) for x, y in zip(*runs))
+
+        for mode in ("default", "deterministic"):
+            try:
+                with deterministic(mode == "deterministic"):
+                    diff, same = twice()
+                out[mode] = {"max_diff": diff, "bit_equal": same, "raised": None}
+            except RuntimeError as e:  # the op the deterministic mode refuses
+                out[mode] = {"max_diff": None, "bit_equal": False,
+                             "raised": str(e).splitlines()[0][:300]}
+            print(f"c2: one batched step at B={n}, twice from one state, {mode} mode: "
+                  f"{out[mode]} [{card}]", flush=True)
+        del state
+
+        horizon = 2 if cpu else 64
+        actor, critic, batch, epoch = (16, 16, 4, 1) if cpu else (
+            OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH)
+        cfg = OffPolicyConfig(
+            actor_hidden_size=actor, critic_hidden_size=critic, batch_size=batch, epoch=epoch,
+            steps_per_iter=horizon, n_envs=n, buffer_capacity=4 * horizon * n, nan_guard=True)
+
+        def everything(st, metrics=()):
+            return _all_tensors(tuple(st.agent.tensors()) + tuple(st.ring[:6]) + (
+                st.env_state, st.obs, st.prev_valid, st.ep_steps) + tuple(metrics))
+
+        mode = "deterministic" if out["deterministic"]["bit_equal"] else "default"
+        trainer = BatchedOffPolicy(env, "cross_q", cfg, seed=args.seed)
+        step = trainer.train_step_fn()
+        with deterministic(mode == "deterministic"):
+            a = trainer.init()
+            a, _ = step(a)
+            with tempfile.TemporaryDirectory() as d:
+                trainer.save_full(d, a)
+                b = trainer.load_full(d, BatchedOffPolicy(env, "cross_q", cfg,
+                                                          seed=args.seed + 1).init())
+            ta, tb = everything(a), everything(b)
+            loaded_equal = len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+            a, ma = step(a)
+            b, mb = step(b)
+            ta, tb = everything(a, ma), everything(b, mb)
+            diff = _max_diff(ta, tb)
+            agent_diff = _max_diff(a.agent.tensors(), b.agent.tensors())
+        print(f"c2: full-state resume of one CrossQ iteration ({n} envs x {horizon} steps, ring "
+              f"{trainer.capacity}), {mode} mode: loaded state equal to the saved one "
+              f"{loaded_equal}; after one more iteration from each, max |diff| {diff:.3e} over "
+              f"{len(ta)} tensors (agent alone {agent_diff:.3e}) [{card}]", flush=True)
+        out["resume"] = {"mode": mode, "loaded_equal": loaded_equal, "max_diff": diff,
+                         "agent_max_diff": agent_diff}
+        if not loaded_equal:
+            fail(f"c2: the state load_full read back differs from the saved one ({mode})")
+        if not diff <= UPDATE_TOL:
+            fail(f"c2: the resumed iteration ({mode} mode) differs by {diff} > {UPDATE_TOL}")
+    done("c2 reading", t0)
+    return out
 
 
 def main(argv=None):
@@ -1344,8 +1836,17 @@ def main(argv=None):
     prof = profilers(dev, cpu)
     walker = walker_eval(args, dev, cpu, card, cap)
     train = ppo_train(args, dev, cpu, card, cap)
+    off_update = offpolicy_update_check(args, dev, cpu, card)
+    off_train = {algo: offpolicy_train(args, dev, cpu, card, cap, algo)
+                 for algo in ("cross_q", "soft_actor_critic")}
+    off_seq = offpolicy_sequential(args, dev, cpu, card, fat_cap)
+    c2 = c2_reading(args, dev, cpu, card)
 
-    # ---- 16. kernels line and last line ----
+    # ---- 21. kernels line and last line ----
+    print(json.dumps({"offpolicy": {
+        "update_check": off_update,
+        "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
+        "sequential_launches": off_seq["launches"], "c2": c2}}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -1354,12 +1855,14 @@ def main(argv=None):
         "replaces": REPLACES,
         "tpu_kernel": TPU_KERNEL,
         "launches": (main_run["launches"] + sched_run["launches"] + walker["launches"]
-                     + train["launches"]),
+                     + train["launches"] + sum(t["launches"] for t in off_train.values())),
         "launches_by_path": {"batched canonical": main_run["launches"],
                              "batched scheduled": sched_run["launches"],
                              "walker eval": walker["launches"],
-                             "ppo train": train["launches"]},
-        "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"]),
+                             "ppo train": train["launches"],
+                             **{f"{k} train": t["launches"] for k, t in off_train.items()}},
+        "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"],
+                           *(t["err"] for t in off_train.values())),
         "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),
@@ -1376,9 +1879,11 @@ def main(argv=None):
         "source": "evomotion_tpu_torch/kernels/csrc/solver_sweep.cu",
         "replaces": FAT_REPLACES,
         "tpu_kernel": FAT_TPU_KERNEL,
-        "launches": seq["launches"],
-        "launches_by_path": {"sequential run": seq["launches"]},
-        "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err),
+        "launches": seq["launches"] + off_seq["launches"],
+        "launches_by_path": {"sequential run": seq["launches"],
+                             "offpolicy sequential train and run": off_seq["launches"]},
+        "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err,
+                           off_seq["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": fat["times"].get("ms"),

@@ -4,67 +4,105 @@
 Reference: evo_motion_networks/src/agent_factory.cpp. Agent parameters have
 NO defaults: a missing key raises ValueError (agent_factory.cpp:26-30 throws
 std::invalid_argument). Registry names match AGENT_FACTORY_CONSTRUCTORS
-(:189-206). The debug agents are ported; the learning agents are listed and
-their sequential agents raise NotImplementedError naming their ROADMAP item
-(A8). ``ppo_gae`` trains on the batched tier without an agent object (the
-CLI's ``train --num_envs N``, ``train.driver.train_batched``).
+(:189-206). Ported: the debug agents and the off-policy agents
+``soft_actor_critic`` and ``cross_q``. The other learning agents are listed
+and raise NotImplementedError naming their ROADMAP item (A8) when
+``create_agent`` is called; ``ppo_gae`` trains on the batched tier without
+an agent object (the CLI's ``train --num_envs N``,
+``train.driver.train_batched``). ``create_agent`` builds the agent on
+``device`` (default ``cuda``).
 """
 
 from __future__ import annotations
 
 from .base import Agent
+from .cross_q import CrossQAgent
 from .debug_agents import ConstantAgent, RandomAgent
+from .soft_actor_critic import SoftActorCriticAgent
 
 
 class AgentFactory:
     def __init__(self, parameters: dict[str, str]):
         self.parameters = parameters
 
+    def get_int(self, key: str) -> int:
+        return int(self._raw(key))
+
     def get_float(self, key: str) -> float:
         return float(self._raw(key))
+
+    def get_bool(self, key: str) -> bool:
+        raw = self._raw(key)
+        if raw in ("true", "false"):
+            return raw == "true"
+        raise ValueError(raw)
+
+    def get_str(self, key: str) -> str:
+        return self._raw(key)
 
     def _raw(self, key: str) -> str:
         if key not in self.parameters:
             raise ValueError(key)
         return self.parameters[key]
 
-    def create_agent(self, state_space: int, action_space: int) -> Agent:
+    def create_agent(self, state_space: int, action_space: int, device=None) -> Agent:
         raise NotImplementedError
 
 
 class RandomAgentFactory(AgentFactory):
-    def create_agent(self, state_space, action_space):
+    def create_agent(self, state_space, action_space, device=None):
         return RandomAgent(action_space)
 
 
 class ConstantAgentFactory(AgentFactory):
-    def create_agent(self, state_space, action_space):
+    def create_agent(self, state_space, action_space, device=None):
         return ConstantAgent(action_space, self.get_float("action_value"))
+
+
+class SoftActorCriticFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return SoftActorCriticAgent(
+            self.get_int("seed"), state_space, action_space,
+            self.get_int("actor_hidden_size"), self.get_int("critic_hidden_size"),
+            self.get_int("batch_size"), self.get_int("epoch"),
+            self.get_float("learning_rate"), self.get_float("gamma"), self.get_float("tau"),
+            self.get_int("replay_buffer_size"), self.get_int("train_every"), device=device,
+        )
+
+
+class CrossQFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return CrossQAgent(
+            self.get_int("seed"), state_space, action_space,
+            self.get_int("actor_hidden_size"), self.get_int("critic_hidden_size"),
+            self.get_int("batch_size"), self.get_int("epoch"),
+            self.get_float("learning_rate"), self.get_float("gamma"),
+            self.get_int("replay_buffer_size"), self.get_int("train_every"), device=device,
+        )
 
 
 def _not_ported(name: str, item: str):
     class _Factory(AgentFactory):
-        def create_agent(self, state_space, action_space):
+        def create_agent(self, state_space, action_space, device=None):
             raise NotImplementedError(f"agent {name!r} is not ported yet (ROADMAP {item})")
 
     _Factory.__name__ = f"NotPorted_{name}"
     return _Factory
 
 
-# the networks, the truncated normal, checkpoints and the batched PPO-GAE
-# trainer are ported; the sequential learning agents (act/done/save/load,
-# the CLI's `train --num_envs 1` and `run` of a trained agent) are ROADMAP A8
+# the other sequential learning agents (act/done/save/load, the CLI's
+# `train --num_envs 1` and `run` of a trained agent) are ROADMAP A8
 AGENT_FACTORY_CONSTRUCTORS = {
     "random": RandomAgentFactory,
     "constant": ConstantAgentFactory,
     "actor_critic": _not_ported("actor_critic", "A8"),
     "actor_critic_liquid": _not_ported("actor_critic_liquid", "A8"),
-    "soft_actor_critic": _not_ported("soft_actor_critic", "A8"),
+    "soft_actor_critic": SoftActorCriticFactory,
     "soft_actor_critic_liquid": _not_ported("soft_actor_critic_liquid", "A8"),
     "ppo_gae": _not_ported("ppo_gae", "A8"),
     "ppo_gae_liquid": _not_ported("ppo_gae_liquid", "A8"),
     "ppo_vanilla": _not_ported("ppo_vanilla", "A8"),
-    "cross_q": _not_ported("cross_q", "A8"),
+    "cross_q": CrossQFactory,
 }
 
 

@@ -9,12 +9,15 @@ The reference CLI surface (src/main.cpp:25-152):
         [--agent_parameters k=v ...] train <out_dir> [-e ITERS_PER_SAVE] [-n SAVES]
 
 ``run`` is ported (the sequential tier: one world, the per-env physics step,
-on the card), and so is ``train --num_envs N`` with N > 1 for ``ppo_gae``
-on robot_walk (the batched tier: ``train.driver.train_batched``). The
-sequential ``train`` (``--num_envs 1``), the other batched agents, ``gui``
-and run's viewer options (--record, --html, --live) parse but raise
-NotImplementedError naming their ROADMAP item. --cuda and
---env_num_threads are accepted for surface parity and ignored.
+on the card), and so are ``train --num_envs N`` with N > 1 for ``ppo_gae``,
+``soft_actor_critic`` and ``cross_q`` (the batched tier:
+``train.driver.train_batched``) and the sequential ``train`` (``--num_envs
+1``, ``train.driver.train``) for the agents the port has
+(``soft_actor_critic``, ``cross_q``); ``run`` then loads the trained agent.
+The other agents, the other batched trainers, ``gui`` and run's viewer
+options (--record, --html, --live) parse but raise NotImplementedError
+naming their ROADMAP item. --cuda and --env_num_threads are accepted for
+surface parity and ignored.
 """
 
 from __future__ import annotations
@@ -98,16 +101,16 @@ def main(argv=None, device=None):
 
     agent_factory = get_agent_factory(args.agent_name, agent_kv)
     env_factory = get_environment_factory(args.env_name, env_kv)
-    from .train.driver import infer, train_batched
+    from .train.driver import infer, train, train_batched
 
     if args.action == "train":
         if args.num_envs > 1:
             return train_batched(args.env_seed, env_factory, agent_kv, args.num_envs,
                                  args.episodes, args.nb_saves, args.output_path,
                                  agent_name=args.agent_name, device=device)
-        raise NotImplementedError(
-            "train --num_envs 1 (the sequential trainer) is not ported yet: it needs the "
-            "learning agents (ROADMAP A8)")
+        # an agent the port does not have raises from its factory (ROADMAP A8)
+        return train(args.env_seed, agent_factory, env_factory, args.episodes, args.nb_saves,
+                     args.output_path, device=device)
     if args.live or args.html:
         raise NotImplementedError("run --live / --html are not ported yet (ROADMAP A11)")
 

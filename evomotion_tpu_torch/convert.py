@@ -16,9 +16,12 @@ functions serves the actor, critic, Q and BN-Q networks and BatchRenorm:
 ``params_tree`` / ``load_params`` for parameters, ``state_tree`` /
 ``load_state`` for buffers (BatchRenorm's running statistics and step).
 ``adam_tree`` / ``load_adam`` map a ``torch.optim.Adam`` over a module's
-parameters to the state of the JAX trainers' ``optax.chain(
-clip_by_global_norm, adam)`` and back: ``count`` is the step, ``mu`` and
-``nu`` are ``exp_avg`` and ``exp_avg_sq``.
+parameters to an optax Adam state and back: ``count`` is the step, ``mu``
+and ``nu`` are ``exp_avg`` and ``exp_avg_sq``. Two layouts: the JAX
+trainers' and agents' ``optax.chain(clip_by_global_norm, adam)``, ``((),
+(adam, ()))`` with keys ``1/0/count``, and the plain ``optax.adam`` of the
+SAC and CrossQ agents without a clip, ``(adam, ())`` with keys
+``0/count``.
 """
 
 from __future__ import annotations
@@ -131,10 +134,12 @@ def load_state(module: nn.Module, tree) -> nn.Module:
     return module
 
 
-def adam_tree(opt: torch.optim.Adam, module: nn.Module) -> tuple:
-    """``opt``'s state over ``module``'s parameters as the JAX trainers'
-    optax state ``(clip state, (adam state, lr state))``: ``count`` int32,
-    ``mu`` and ``nu`` param pytrees (zeros before the first step)."""
+def adam_tree(opt: torch.optim.Adam, module: nn.Module, clip: bool = True) -> tuple:
+    """``opt``'s state over ``module``'s parameters as an optax state:
+    ``(clip state, (adam state, lr state))`` for ``optax.chain(
+    clip_by_global_norm, adam)`` (``clip``), else ``(adam state, lr
+    state)`` for a plain ``optax.adam``; ``count`` int32, ``mu`` and ``nu``
+    param pytrees (zeros before the first step)."""
     named = list(module.named_parameters())
     st = [opt.state.get(p, {}) for _, p in named]
     count = int(st[0]["step"]) if st and "step" in st[0] else 0
@@ -143,15 +148,17 @@ def adam_tree(opt: torch.optim.Adam, module: nn.Module) -> tuple:
         return _nested((n, _numpy(s[key]) if key in s else np.zeros(tuple(p.shape), np.float32))
                        for (n, p), s in zip(named, st))
 
-    adam = {"count": np.int32(count), "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
-    return ((), (adam, ()))
+    adam = ({"count": np.int32(count), "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
+            ())
+    return ((), adam) if clip else adam
 
 
 @torch.no_grad()
 def load_adam(opt: torch.optim.Adam, module: nn.Module, tree) -> torch.optim.Adam:
     """Fills ``opt``'s state over ``module``'s parameters from an optax
-    state laid out as :func:`adam_tree` gives it."""
-    adam = tree[1][0]
+    state in either layout of :func:`adam_tree` (told apart by where
+    ``count`` is)."""
+    adam = tree[0] if "count" in _keys(tree[0]) else tree[1][0]
     count = float(np.asarray(adam["count"]))
     for name, p in module.named_parameters():
         opt.state[p] = {
@@ -160,3 +167,10 @@ def load_adam(opt: torch.optim.Adam, module: nn.Module, tree) -> torch.optim.Ada
             "exp_avg_sq": torch.tensor(np.asarray(_at(adam["nu"], name))).to(p),
         }
     return opt
+
+
+def _keys(node):
+    """The field names of a dict or NamedTuple (an optax state), else ()."""
+    if isinstance(node, dict):
+        return node.keys()
+    return getattr(node, "_fields", ())

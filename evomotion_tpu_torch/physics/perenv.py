@@ -300,7 +300,7 @@ class PerEnvStep(bt.BatchedStep):
         if model.solver != "pallas":
             raise NotImplementedError(
                 f"solver={model.solver!r}: the colored-phase XLA solver branch of the "
-                "per-env step is not ported (ROADMAP A11); use solver='pallas'"
+                "per-env step is not ported (ROADMAP A9); use solver='pallas'"
             )
         super().__init__(model, dt, device)
         st = self.statics

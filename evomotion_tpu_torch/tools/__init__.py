@@ -1,8 +1,10 @@
 """Tools of the port, the counterparts of the repo's ``tools/``:
 ``prof_kernel`` (the env-last fat-row sweep per row visit), ``prof_step``
 (phases of the batched spider step), ``eval_walk`` (greedy evaluation of a
-robot_walk checkpoint) and ``train_walk`` (long-run batched PPO training
-with learning-curve and greedy-eval logging). Run each with
-``python -m evomotion_tpu_torch.tools.<name>``; they run on the card unless
-given ``--device cpu`` (the profilers) or ``device="cpu"`` (``main`` of the
-walker tools)."""
+robot_walk checkpoint), ``train_walk`` (long-run batched PPO training with
+learning-curve and greedy-eval logging), ``train_walk_offpolicy`` (the same
+for SAC and CrossQ) and ``train_offpolicy_cartpole`` (SAC and CrossQ
+learning curves on cartpole). Run each with ``python -m
+evomotion_tpu_torch.tools.<name>``; they run on the card unless given
+``--device cpu`` (the profilers and the off-policy tools) or
+``device="cpu"`` (``main`` of the walker tools)."""

@@ -11,13 +11,14 @@ import dataclasses
 def small_walker(horizon: int = 3):
     """While open, every robot_walk env that ``RobotWalkFactory.make``
     builds settles with ``reset_frames=1`` and runs one solver iteration,
-    and the eval horizons of ``tools.eval_walk`` and ``tools.train_walk``
-    are ``horizon`` env steps in place of the 1800-step win horizon."""
+    and the eval horizons of ``tools.eval_walk``, ``tools.train_walk`` and
+    ``tools.train_walk_offpolicy`` are ``horizon`` env steps in place of
+    the 1800-step win horizon."""
     from ..envs import robot
-    from . import eval_walk, train_walk
+    from . import eval_walk, train_walk, train_walk_offpolicy
 
     make = robot.RobotWalkFactory.make
-    saved = (make, eval_walk.WIN, train_walk.WIN_STEPS)
+    saved = (make, eval_walk.WIN, train_walk.WIN_STEPS, train_walk_offpolicy.WIN_STEPS)
 
     def small_make(self, *a, **kw):
         self.parameters = {**self.parameters, "reset_frames": "1"}
@@ -26,8 +27,9 @@ def small_walker(horizon: int = 3):
         return env
 
     robot.RobotWalkFactory.make = small_make
-    eval_walk.WIN = train_walk.WIN_STEPS = horizon
+    eval_walk.WIN = train_walk.WIN_STEPS = train_walk_offpolicy.WIN_STEPS = horizon
     try:
         yield
     finally:
-        robot.RobotWalkFactory.make, eval_walk.WIN, train_walk.WIN_STEPS = saved
+        (robot.RobotWalkFactory.make, eval_walk.WIN, train_walk.WIN_STEPS,
+         train_walk_offpolicy.WIN_STEPS) = saved

@@ -1,15 +1,17 @@
 """Training and inference drivers (port of ``evomotion_tpu/train/driver.py``).
 
-``train_batched``: the batched trainer behind the CLI's ``train --num_envs
-N`` (N > 1): N envs in lockstep on the batched physics step, PPO-GAE
-(``ppo_batched``), ``save_<i>/`` checkpoints of the reference's components.
-``infer``: src/infer.cpp:19-106: load an agent, then step one env until
-done, episode after episode, on a batch of one world stepped by the per-env
-physics step.
+``train``: src/train.cpp:17-87, the sequential trainer behind the CLI's
+``train`` with ``--num_envs 1``: one env (a batch of one on the per-env
+physics step), act/done per step, ``save_<i>/`` every ``episodes``
+episodes. ``train_batched``: the batched trainers behind ``train
+--num_envs N`` (N > 1): N envs in lockstep on the batched physics step,
+PPO-GAE (``ppo_batched``) or SAC and CrossQ with a device ring
+(``offpolicy_batched``), ``save_<i>/`` checkpoints of the reference's
+components. ``infer``: src/infer.cpp:19-106: load an agent, then step one
+env until done, episode after episode, on the per-env physics step.
 
-Not ported yet: the sequential ``train`` (train.cpp, ``--num_envs 1``) and
-its learning agents (ROADMAP A8), the other batched trainers (A7) and the
-recording hooks (A11).
+Not ported yet: the other learning agents (ROADMAP A8), the other batched
+trainers (A7) and the recording hooks (A11).
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ import torch
 from ..convert import adam_tree
 from ..device import resolve
 from .checkpoint import save_component
+from .offpolicy_batched import BatchedOffPolicy, OffPolicyConfig
 from .ppo_batched import BatchedPpo, PpoConfig
 from .profiling import StepTimer, trace
 
 # batched agents of the JAX package that the port does not train yet
-_BATCHED_LATER = ("soft_actor_critic", "cross_q", "soft_actor_critic_liquid", "actor_critic",
-                  "ppo_vanilla", "ppo_gae_liquid")
+_BATCHED_LATER = ("soft_actor_critic_liquid", "actor_critic", "ppo_vanilla", "ppo_gae_liquid")
 
 
 def _progress(prefix: str, i: int, total: int, t0: float) -> None:
@@ -40,51 +42,149 @@ def _progress(prefix: str, i: int, total: int, t0: float) -> None:
     sys.stdout.flush()
 
 
+def _scalars(res):
+    """(reward, valid, done) of a batch-of-one StepResult, read from the
+    device in one transfer."""
+    r, v, d = torch.stack([res.reward.float(), res.valid.float(), res.done.float()]).view(
+        3, -1)[:, 0].tolist()
+    return r, v > 0.5, d > 0.5
+
+
+def train(env_seed, agent_factory, env_factory, episodes, nb_saves, output_path, device=None):
+    """Sequential reference-parity loop (train.cpp:17-87): one env, act/done
+    per step, settle frames stepped through with zero actions, and a save
+    every ``episodes`` episodes into ``save_<i>/``. Runs on ``device``
+    (default ``cuda``)."""
+    dev = resolve(device)
+    env = env_factory.make(env_seed, device=dev)
+    agent = agent_factory.create_agent(env.observation_size, env.action_size, device=dev)
+    os.makedirs(output_path, exist_ok=True)
+    # reset draws come from the env's mt19937 table; the generator serves an
+    # env made without one
+    gen = torch.Generator(device=dev).manual_seed(env_seed)
+    zeros = torch.zeros((1, env.action_size), device=dev)
+    state, res = env.reset(1, gen)
+    reward, _, _ = _scalars(res)
+    t0 = time.time()
+    for s in range(nb_saves):
+        for e in range(episodes):
+            while True:
+                action = agent.act(res.obs, reward)
+                state, res = env.step(state, action, gen)
+                reward, valid, done = _scalars(res)
+                # skip settle-phase frames (the reference blocks inside
+                # reset(); here they arrive as invalid transitions)
+                while not valid:
+                    state, res = env.step(state, zeros, gen)
+                    reward, valid, done = _scalars(res)
+                if done:
+                    break
+            agent.done(res.obs, reward)
+            # after done, the env settles; fast-forward to the next
+            # episode's first valid observation (reference reset() returns it)
+            while not valid:
+                state, res = env.step(state, zeros, gen)
+                reward, valid, done = _scalars(res)
+            metrics = " ".join(m.to_string() for m in agent.get_metrics())
+            _progress(f"save {s} {metrics}", e + 1, episodes, t0)
+        agent.save(os.path.join(output_path, f"save_{s}"))
+    print()
+    return 0
+
+
 def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_saves,
                   output_path, agent_name="ppo_gae", device=None):
     """Batched trainer: N envs in lockstep, rollout + update per iteration.
 
     ``episodes`` is read as train iterations per save (each covers
     horizon * num_envs env steps). Agents: ``ppo_gae`` / ``ppo`` (PPO-GAE,
-    ``ppo_batched.py``). Agent parameters and their defaults are the JAX
-    package's (``hidden_size`` 256, ``gamma`` 0.99, ``lambda`` 0.95,
-    ``epsilon`` 0.2, ``entropy_factor`` 0.01, ``critic_loss_factor`` 0.5,
-    ``epoch`` 8, ``learning_rate`` 1e-3, ``clip_grad_norm`` 0.5, ``horizon``
-    64, ``seed`` the env seed). Each save writes ``save_<s>/`` with the
+    ``ppo_batched.py``) and ``soft_actor_critic`` / ``cross_q`` (device
+    ring, ``offpolicy_batched.py``). Agent parameters and their defaults are
+    the JAX package's (``evomotion_tpu/train/driver.py``); ``seed`` defaults
+    to the env seed and ``horizon`` (64) is the rollout length. PPO:
+    ``hidden_size`` 256, ``gamma`` 0.99, ``lambda`` 0.95, ``epsilon`` 0.2,
+    ``entropy_factor`` 0.01, ``critic_loss_factor`` 0.5, ``epoch`` 8,
+    ``learning_rate`` 1e-3, ``clip_grad_norm`` 0.5; each save writes the
     components ``actor``, ``critic``, ``actor_optimizer`` and
-    ``critic_optimizer``. ``EVOMOTION_PROFILE=1`` times each iteration and its
-    rollout and update phases (``StepTimer``, waiting for the card) and
-    prints them at each save with env-steps/s including the update;
-    ``EVOMOTION_TRACE_DIR=<dir>`` writes one ``torch.profiler`` trace of
-    iteration 10. Runs on ``device`` (default ``cuda``)."""
+    ``critic_optimizer``. SAC / CrossQ: ``hidden_size`` 256 (the actor's),
+    ``critic_hidden_size`` (default ``hidden_size``), ``batch_size`` 256,
+    ``epoch`` 1, ``learning_rate`` 3e-4, ``gamma`` 0.99, ``tau`` 0.005,
+    ``train_every`` 1, ``replay_buffer_size`` 262144 (the ring), and, beyond
+    the JAX driver's keys, ``nan_guard`` (``true``/``false``, default false:
+    skip an update whose losses are not finite, as the walker tool always
+    does); each save writes the agent's components. ``EVOMOTION_PROFILE=1``
+    times each iteration and its rollout and update phases (``StepTimer``,
+    waiting for the card) and prints them at each save with env-steps/s
+    including the update; ``EVOMOTION_TRACE_DIR=<dir>`` writes one
+    ``torch.profiler`` trace of iteration 10. Runs on ``device`` (default
+    ``cuda``)."""
     if agent_name in _BATCHED_LATER:
         raise NotImplementedError(
             f"batched training of {agent_name!r} is not ported yet (ROADMAP A7)")
-    if agent_name not in ("ppo_gae", "ppo"):
-        raise SystemExit(f"batched training supports ppo_gae (and, later, "
-                         f"{'/'.join(_BATCHED_LATER)}), not {agent_name}")
+    offpolicy = agent_name in ("soft_actor_critic", "cross_q")
+    if not offpolicy and agent_name not in ("ppo_gae", "ppo"):
+        raise SystemExit(f"batched training supports ppo_gae/soft_actor_critic/cross_q (and, "
+                         f"later, {'/'.join(_BATCHED_LATER)}), not {agent_name}")
     dev = resolve(device)
     # mt_parity off: the envs draw their resets from the trainer's generator
     # (a shared mt19937 table would tilt every env identically)
     env = env_factory.make(env_seed, mt_parity=False, device=dev, per_env_step=False)
     g = lambda k, d: type(d)(agent_params[k]) if k in agent_params else d  # noqa: E731
-    cfg = PpoConfig(
-        hidden_size=g("hidden_size", 256),
-        gamma=g("gamma", 0.99),
-        lam=g("lambda", 0.95),
-        epsilon=g("epsilon", 0.2),
-        entropy_factor=g("entropy_factor", 0.01),
-        critic_loss_factor=g("critic_loss_factor", 0.5),
-        epoch=g("epoch", 8),
-        learning_rate=g("learning_rate", 1e-3),
-        clip_grad_norm=g("clip_grad_norm", 0.5),
-        horizon=g("horizon", 64),
-        n_envs=num_envs,
-    )
-    trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
+    if offpolicy:
+        guard = agent_params.get("nan_guard", "false")
+        if guard not in ("true", "false"):
+            raise ValueError(f"nan_guard={guard!r}: expected true or false")
+        cfg = OffPolicyConfig(
+            actor_hidden_size=g("hidden_size", 256),
+            critic_hidden_size=g("critic_hidden_size", g("hidden_size", 256)),
+            batch_size=g("batch_size", 256),
+            epoch=g("epoch", 1),
+            learning_rate=g("learning_rate", 3e-4),
+            gamma=g("gamma", 0.99),
+            tau=g("tau", 0.005),
+            train_every=g("train_every", 1),
+            steps_per_iter=g("horizon", 64),
+            n_envs=num_envs,
+            buffer_capacity=g("replay_buffer_size", 262144),
+            nan_guard=guard == "true",
+        )
+        trainer = BatchedOffPolicy(env, agent_name, cfg, seed=g("seed", env_seed))
+        horizon = cfg.steps_per_iter
+
+        def critic_loss(m):
+            return m.critic_1_loss
+
+        save = trainer.save
+    else:
+        cfg = PpoConfig(
+            hidden_size=g("hidden_size", 256),
+            gamma=g("gamma", 0.99),
+            lam=g("lambda", 0.95),
+            epsilon=g("epsilon", 0.2),
+            entropy_factor=g("entropy_factor", 0.01),
+            critic_loss_factor=g("critic_loss_factor", 0.5),
+            epoch=g("epoch", 8),
+            learning_rate=g("learning_rate", 1e-3),
+            clip_grad_norm=g("clip_grad_norm", 0.5),
+            horizon=g("horizon", 64),
+            n_envs=num_envs,
+        )
+        trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
+        horizon = cfg.horizon
+
+        def critic_loss(m):
+            return m.critic_loss
+
+        def save(save_dir, state):
+            save_component(save_dir, "actor", state.actor)
+            save_component(save_dir, "critic", state.critic)
+            save_component(save_dir, "actor_optimizer", adam_tree(state.actor_opt, state.actor))
+            save_component(save_dir, "critic_optimizer",
+                           adam_tree(state.critic_opt, state.critic))
+
     timer = StepTimer() if os.environ.get("EVOMOTION_PROFILE") else None
     trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")
-    train_step = trainer.train_step_fn(timer)
+    train_step = trainer.train_step_fn(timer=timer)
     state = trainer.init()
     os.makedirs(output_path, exist_ok=True)
 
@@ -104,33 +204,20 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
                 state, metrics = train_step(state)
             if e % 10 == 0 or e == episodes - 1:
                 m = type(metrics)(*(float(x) for x in metrics))
-                steps_done = (s * episodes + e + 1) * cfg.horizon * num_envs
+                steps_done = (s * episodes + e + 1) * horizon * num_envs
                 sps = steps_done / (time.time() - t0)
                 _progress(
-                    f"save {s} actor={m.actor_loss:.4f} critic={m.critic_loss:.4f} "
+                    f"save {s} actor={m.actor_loss:.4f} critic={critic_loss(m):.4f} "
                     f"r/step={m.mean_reward:.4f} {sps:,.0f} env-steps/s",
                     e + 1, episodes, t0,
                 )
         if timer is not None:
             print(f"\n[profile] {timer.summary()}  "
-                  f"({timer.rate('train_iter', cfg.horizon * num_envs):,.0f} env-steps/s "
+                  f"({timer.rate('train_iter', horizon * num_envs):,.0f} env-steps/s "
                   f"incl. update)")
-        save_dir = os.path.join(output_path, f"save_{s}")
-        save_component(save_dir, "actor", state.actor)
-        save_component(save_dir, "critic", state.critic)
-        save_component(save_dir, "actor_optimizer", adam_tree(state.actor_opt, state.actor))
-        save_component(save_dir, "critic_optimizer",
-                       adam_tree(state.critic_opt, state.critic))
+        save(os.path.join(output_path, f"save_{s}"), state)
     print()
     return 0
-
-
-def _scalars(res):
-    """(reward, valid, done) of a batch-of-one StepResult, read from the
-    device in one transfer."""
-    r, v, d = torch.stack([res.reward.float(), res.valid.float(), res.done.float()]).view(
-        3, -1)[:, 0].tolist()
-    return r, v > 0.5, d > 0.5
 
 
 def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_path=None,
@@ -142,7 +229,7 @@ def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_p
         raise NotImplementedError("trajectory recording is not ported yet (ROADMAP A11)")
     dev = resolve(device)
     env = env_factory.make(env_seed, device=dev)
-    agent = agent_factory.create_agent(env.observation_size, env.action_size)
+    agent = agent_factory.create_agent(env.observation_size, env.action_size, device=dev)
     agent.load(input_path)
     agent.set_eval(True)
     # reset draws come from the env's mt19937 table; the generator serves an

@@ -64,8 +64,8 @@ def test_missing_agent_parameter_raises(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["cli", "robot_jump", "random", "run", "x"],
     ["cli", "cartpole", "ppo_gae", "run", "x"],
-    ["cli", "cartpole", "soft_actor_critic", "run", "x"],
-    ["cli", "cartpole", "random", "train", "x"],
+    ["cli", "cartpole", "actor_critic", "run", "x"],
+    ["cli", "cartpole", "ppo_gae", "train", "x"],
     ["cli", "cartpole", "random", "run", "x", "--record", "t.npz"],
     ["cli", "cartpole", "random", "run", "x", "--live"],
     ["gui"],

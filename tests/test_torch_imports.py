@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed: importing it, every module
 under it (the ``tools`` subpackage of profilers and walker tools, the
-networks and the trainer too), and chip_smoke.py
+networks, the agents, the replay buffers and the trainers too), and
+chip_smoke.py
 must import neither ``jax`` nor any module of the JAX package
 ``evomotion_tpu``."""
 
@@ -33,7 +34,13 @@ assert {"evomotion_tpu_torch.tools.prof_kernel",
         "evomotion_tpu_torch.train.checkpoint",
         "evomotion_tpu_torch.train.metrics",
         "evomotion_tpu_torch.train.profiling",
-        "evomotion_tpu_torch.train.ppo_batched"} <= set(names), names
+        "evomotion_tpu_torch.train.ppo_batched",
+        "evomotion_tpu_torch.train.offpolicy_batched",
+        "evomotion_tpu_torch.buffers.replay",
+        "evomotion_tpu_torch.agents.soft_actor_critic",
+        "evomotion_tpu_torch.agents.cross_q",
+        "evomotion_tpu_torch.tools.train_offpolicy_cartpole",
+        "evomotion_tpu_torch.tools.train_walk_offpolicy"} <= set(names), names
 """
 
 

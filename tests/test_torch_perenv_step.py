@@ -171,5 +171,5 @@ def test_physics_step_dispatch_and_batched_call_shape():
                                       en[i], DT)
         for a, b in zip(one, both):
             torch.testing.assert_close(a, b[i], atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         PerEnvStep(dataclasses.replace(model, solver="xla"), DT, device="cpu")

@@ -180,8 +180,8 @@ def test_cli_train_num_envs_saves_loadable_components(small, capsys, tmp_path):
     assert int(st[1][0].count) == 2  # one epoch per iteration, two iterations
 
 
-@pytest.mark.parametrize("agent,item", [("cross_q", "A7"), ("ppo_vanilla", "A7"),
-                                        ("soft_actor_critic", "A7")])
+@pytest.mark.parametrize("agent,item", [("soft_actor_critic_liquid", "A7"),
+                                        ("ppo_vanilla", "A7"), ("actor_critic", "A7")])
 def test_cli_train_unported_batched_agents_raise(agent, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["cli", "robot_walk", agent, "--num_envs", "2", "train", str(tmp_path)],
