@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
-Nine paths run, each with its kernel: the batched spider ``robot_walk``
+Thirteen paths run, each with its kernel: the batched spider ``robot_walk``
 rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``), in
 the canonical and in the ``scheduled`` row order (the slim sweep's groups
 mode); the CLI's sequential ``run`` (one world, the per-env physics step,
@@ -14,7 +14,11 @@ sweep ``kernels/csrc/solver_sweep_envlast.cu``); the greedy eval of the
 committed walker (``tools.eval_walk``) and the CLI's batched PPO ``train``,
 both on the batched step and the slim sweep; the CLI's batched CrossQ and
 SAC ``train`` (the slim sweep) and their sequential ``train`` then ``run``
-on cartpole (the fat-row sweep). Phases, each printed with its seconds:
+on cartpole (the fat-row sweep); the on-policy tier: batched A2C and
+PPO-vanilla ``train`` (the slim sweep), the batched ``robot_jump`` rollout
+(the slim sweep) and its sequential ``run``, and the sequential A2C,
+PPO-vanilla and PPO-GAE ``train`` then ``run`` (the fat-row sweep).
+Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
@@ -124,8 +128,35 @@ on cartpole (the fat-row sweep). Phases, each printed with its seconds:
     deterministic mode where it made the step bit-equal: the loaded state
     equal to the saved one, and one more iteration from each within
     UPDATE_TOL;
-21. the off-policy readings line, the kernels line and the last line (one
-    JSON object each).
+21. onpolicy update check: an update of A2C (batch 256), PPO-vanilla (a
+    16,384-step block, 8 epochs) and the sequential PPO-GAE (8 padded
+    trajectories of up to 1,800 steps) at the walker's widths (obs 371,
+    action 12, hidden 256) on the card and on the CPU from one seeded
+    init and the same numpy-made inputs: update 1 (the losses, the
+    parameters within 2 lr per epoch, A2C's Adam moments), then update 2
+    from one shared state (the losses and the parameters within
+    UPDATE_TOL, and A2C's whole carry); ms, device launches and device ms
+    per update;
+22. robot_jump: one batched jump step of 4 envs, card against CPU, f32
+    rows; ``RobotJump`` at B=2048, reset (10 settle steps) and 60 steps of
+    uniform random actions (finite, on the floor, the slim sweep once per
+    physics step and its first call against its plain version,
+    env-steps/s); the CLI's sequential ``run`` of one episode, the fat-row
+    sweep twice per physics step;
+23. actor_critic and ppo_vanilla train: ``cli.main([... "robot_walk",
+    algo, "--num_envs", "2048", ... "train", ... "-e", "2", "-n", "1"])``
+    with hidden 256, horizon 64, batch 256, epoch 8 and
+    ``EVOMOTION_PROFILE=1``: finite losses, moved parameters, ``save_0``
+    loading back equal on the card; the slim sweep counted and held as in
+    15; rollout and update ms per iteration and env-steps/s printed;
+24. onpolicy sequential: ``cli cartpole actor_critic|ppo_vanilla|ppo_gae
+    ... train -e 2 -n 1`` then ``run`` of ``save_0``; ``cli robot_jump
+    ppo_gae ... train -e 3 -n 1`` at hidden 256 then ``run``; ``cli
+    robot_walk ppo_gae ... run`` of phase 15's batched ``save_0``: the
+    fat-row sweep once per cartpole and twice per spider physics step,
+    each command's first call against its plain version;
+25. the off-policy and on-policy readings lines, the kernels line and the
+    last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -143,6 +174,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -623,9 +655,7 @@ def batched_step_check(env, state, action, n, dev, label):
     the same step on the CPU (plain version); returns the largest difference."""
     import torch
 
-    from evomotion_tpu_torch.envs.robot import RobotWalk
-
-    cpu_env = RobotWalk(env.params, device="cpu")
+    cpu_env = type(env)(env.params, device="cpu")
     cpu_env.model = env.model
     few = type(state.physics)(*(x[:n] for x in state.physics))
     tgt = action[:n] * env._speed
@@ -676,12 +706,14 @@ def groups_check(env, env32, state, action, cap, n_cmp, dev, cpu):
     return err
 
 
-def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label):
+def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label,
+                    settled_after_reset=True):
     """A batched path: reset (settle steps) then ``n_steps`` steps of
     uniform random actions. The slim sweep's counts are set to 0 just before
     and read just after; it must have launched once per physics step. The
-    outputs must be finite and the spider on the floor. Returns the
-    readings."""
+    outputs must be finite and the spider on the floor: after the reset, or
+    (``settled_after_reset=False``: robot_jump's reset settles 10 steps, not
+    60) after the steps. Returns the readings."""
     import torch
 
     from evomotion_tpu_torch.kernels import sweep as sp
@@ -726,9 +758,14 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label):
     y_lo, y_hi = float(torch.stack(y_lo).min()), float(torch.stack(y_hi).max())
     drift = float((state.physics.pos[:, root] - torch.tensor([1.0, 0.25, 2.0], device=dev))
                   [:, [0, 2]].abs().max())
-    q = torch.quantile(root_y0.float().cpu(), torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0]))
+    probs = torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0])
+    q = torch.quantile(root_y0.float().cpu(), probs)
     print(f"{label}: after reset: root y min/5%/50%/95%/max "
           + " ".join(f"{x:.3f}" for x in q.tolist()), flush=True)
+    if not settled_after_reset:
+        q = torch.quantile(state.physics.pos[:, root, 1].float().cpu(), probs)
+        print(f"{label}: after the steps: root y min/5%/50%/95%/max "
+              + " ".join(f"{x:.3f}" for x in q.tolist()), flush=True)
     print(f"{label}: over {n_steps} steps: body y in [{y_lo:.3f}, {y_hi:.3f}], root xz drift "
           f"max {drift:.3f}, episodes ended {int(torch.stack(ended).sum())} of {n_envs} envs, "
           f"mean reward {float(rewards.mean()):.4f}", flush=True)
@@ -741,10 +778,11 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label):
     if drift > 20.0:
         fail(f"{label}: spider root drifted impossibly far")
     # spawned at y=0.25 with a random tilt, the spider has come down onto the
-    # floor after the 60 settle steps (1 s) of a full reset; some land propped
-    # on their legs, so the check is on the median and the extremes
+    # floor after the 60 settle steps (1 s) of a full reset (robot_jump: after
+    # its 10 settle steps and the run's); some land propped on their legs, so
+    # the check is on the median and the extremes
     if not cpu and not (q[0] > -1.0 and q[2] < 0.0 and q[4] < 1.5):
-        fail(f"{label}: spider did not settle on the floor during reset")
+        fail(f"{label}: spider did not settle on the floor")
     sps = n_envs * n_steps / t_steps
     print(f"{label}: reset ({env.settle_total} settle steps) {t_reset:.2f} s; {n_steps} steps "
           f"{t_steps:.2f} s", flush=True)
@@ -1138,7 +1176,7 @@ def profiled_train(argv, label, env, iters, horizon, dev, cpu, cap):
     return prog, ms, rate, launches, kern_err
 
 
-def ppo_train(args, dev, cpu, card, cap):
+def ppo_train(args, dev, cpu, card, cap, keep):
     """Phase 15, the CLI's batched ``train``: ``cli.main(["cli",
     "robot_walk", "ppo_gae", "--num_envs", ..., "train", out, "-e", "3",
     "-n", "1"])`` with the walker's recipe (hidden 256, horizon 64, epoch 8,
@@ -1148,7 +1186,9 @@ def ppo_train(args, dev, cpu, card, cap):
     are set to 0 just before and read just after: one launch per physics
     step; the first call's inputs are kept and, after the run, go through
     the kernel and its plain version, which must agree within TOL. Then a
-    200-step greedy eval of the saved actor at 16 envs."""
+    200-step greedy eval of the saved actor at 16 envs. ``save_0`` is
+    copied to ``keep`` (phase 24 runs it on the sequential agent)."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1209,6 +1249,7 @@ def ppo_train(args, dev, cpu, card, cap):
                         fail(f"ppo train: save_0 {name} {n} did not load back equal")
         print("ppo train: save_0 (actor, critic and their Adam states) loads back equal on "
               f"the card, Adam count {iters * epoch}", flush=True)
+        shutil.copytree(save, keep, dirs_exist_ok=True)
 
         n_smoke, h_smoke = (2, 3) if cpu else (16, 200)
         r = ew.greedy_eval(env, ew.GreedyPolicy(actor).eval(), n_smoke, h_smoke,
@@ -1220,7 +1261,7 @@ def ppo_train(args, dev, cpu, card, cap):
           f"valid steps {float(steps.mean()):.2f}, mean return {float(r.ret.mean()):.3f}, "
           f"{r.steps_s / h_smoke * 1e3:.3f} ms per env step [{card}]", flush=True)
     done("ppo train", t0)
-    return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err}
+    return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err, "hidden": hidden}
 
 
 # |card - CPU| bound on one off-policy update at full width: the four losses
@@ -1462,29 +1503,14 @@ def offpolicy_sequential(args, dev, cpu, card, fat_cap):
     CrossQ, ``cli.main(["cli", "cartpole", algo, ..., "train", out, "-e",
     "2", "-n", "1"])`` (one env on the per-env step, an update per env step
     once the buffer holds a batch), then ``run`` of ``save_0``, one
-    episode. The fat-row sweep's counts and a count of per-env physics steps
-    are set to 0 just before each command and read just after: one launch
-    per physics step; the first call of each command is held against its
-    plain version."""
+    episode, each through :func:`seq_command`: the fat-row sweep once per
+    physics step, each command's first call held against its plain
+    version."""
     import tempfile
 
-    import torch
-
-    from evomotion_tpu_torch import cli
-    from evomotion_tpu_torch.kernels import sweep_fat as sf
-    from evomotion_tpu_torch.physics import perenv
-
     t0 = phase("offpolicy sequential")
-    steps = [0]
-    run_once = perenv.PerEnvStep._run
-
-    def counted(self, *a):
-        steps[0] += 1
-        return run_once(self, *a)
-
-    perenv.PerEnvStep._run = counted
     total, errs = 0, []
-    try:
+    with perenv_steps() as steps:
         for algo in ("soft_actor_critic", "cross_q"):
             params = [f"seed={args.seed}", *SEQ_TRAIN_PARAMS] + (
                 ["tau=0.005"] if algo == "soft_actor_critic" else [])
@@ -1494,48 +1520,13 @@ def offpolicy_sequential(args, dev, cpu, card, fat_cap):
                 for what, argv in (("train", base + ["train", out, "-e", "2", "-n", "1"]),
                                    ("run", base + ["run", os.path.join(out, "save_0"),
                                                    "--episodes", "1"])):
-                    label = f"cartpole {algo} {what}"
-                    buf = io.StringIO()
-                    fat_cap.arm(limit=1)
-                    sf.KERNEL.launches = fat_cap.calls = steps[0] = 0
-                    ts = time.perf_counter()
-                    with contextlib.redirect_stdout(buf):
-                        rc = cli.main(argv, device=dev)
-                    if not cpu:
-                        torch.cuda.synchronize()
-                    wall = time.perf_counter() - ts
-                    n_phys, launches, calls = steps[0], sf.KERNEL.launches, fat_cap.calls
-                    fat_cap.armed = False
-                    text = buf.getvalue().replace("\r", "\n")
-                    last = [x.strip() for x in text.splitlines() if x.strip()][-1:]
-                    print(f"{label}: {last[0] if last else '(no output)'}", flush=True)
-                    print(f"{label}: {n_phys} physics steps, fat sweep calls {calls}, kernel "
-                          f"launches {launches}, {wall:.2f} s, {wall / max(n_phys, 1) * 1e3:.2f}"
-                          f" ms per physics step (host clock) [{card}]", flush=True)
-                    if rc != 0:
-                        fail(f"{label}: cli returned {rc}")
-                    if n_phys < 1 or calls != n_phys or (not cpu and launches != calls):
-                        fail(f"{label}: expected one fat sweep launch per physics step, got "
-                             f"{launches} launches / {calls} calls in {n_phys} physics steps")
-                    if what == "train":
-                        meters = dict(re.findall(r"(\w+) = (\S+)", text.splitlines()[-1]
-                                                 if text.strip() else ""))
-                        if not meters or not all(math.isfinite(float(v))
-                                                 for v in meters.values()):
-                            fail(f"{label}: meters {meters}")
-                        if not os.path.exists(os.path.join(out, "save_0", "actor.npz")):
-                            fail(f"{label}: no save_0")
-                    else:
-                        m = EPISODE_LINE.match(last[0] if last else "")
-                        if not m or not math.isfinite(float(m.group(3))):
-                            fail(f"{label}: episode line {last}")
-                    total += launches
-                    inp, fat_cap.captured = fat_cap.inputs, []
-                    _, err, _ = fat_check(inp, cpu, f"{label}: first sweep call")
-                    errs.append(err)
-    finally:
-        perenv.PerEnvStep._run = run_once
-        fat_cap.armed = False
+                    r = seq_command(argv, f"cartpole {algo} {what}", 1, dev, cpu, card, fat_cap,
+                                    steps)
+                    if what == "train" and not os.path.exists(
+                            os.path.join(out, "save_0", "actor.npz")):
+                        fail(f"cartpole {algo} train: no save_0")
+                    total += r["launches"]
+                    errs.append(r["err"])
     done("offpolicy sequential", t0)
     return {"launches": total, "err": max(errs)}
 
@@ -1657,6 +1648,416 @@ def c2_reading(args, dev, cpu, card):
             fail(f"c2: the resumed iteration ({mode} mode) differs by {diff} > {UPDATE_TOL}")
     done("c2 reading", t0)
     return out
+
+
+# ---- the on-policy tier and robot_jump (phases 21-24) --------------------------
+
+# phase 21's widths: the walker's (obs 371, action 12, hidden 256); A2C at its
+# batch, PPO-vanilla on one 256-env x 64-step block with 8 epochs, the
+# sequential PPO-GAE on 8 trajectories of up to the 1800-step win horizon
+ON_HIDDEN, ON_LR, ON_EPOCH = 256, 1e-3, 8
+A2C_BATCH, VANILLA_BATCH, GAE_TRAJ, GAE_MAX_LEN = 256, 256 * 64, 8, 1800
+ON_ALGOS = ("actor_critic", "ppo_vanilla", "ppo_gae")
+# phase 22: the batched jump rollout after its reset (10 settle steps)
+JUMP_ENVS, JUMP_STEPS = 2048, 60
+# phase 23: the CLI's batched A2C and PPO-vanilla train, iterations
+ON_TRAIN_ITERS = 2
+# phase 24: agent parameters of the sequential cartpole train (strict keys)
+ON_SEQ_PARAMS = {
+    "actor_critic": ["hidden_size=64", "batch_size=64", "lr=1e-3", "gamma=0.99",
+                     "entropy_start_factor=0.01", "entropy_end_factor=0.0001",
+                     "entropy_steps=100000", "replay_buffer_size=100000", "train_every=1"],
+    "ppo_vanilla": ["hidden_size=64", "gamma=0.99", "epsilon=0.2", "entropy_factor=0.01",
+                    "critic_loss_factor=0.5", "epoch=8", "batch_size=64",
+                    "learning_rate=1e-3"],
+    "ppo_gae": ["hidden_size=64", "gamma=0.99", "lambda=0.95", "epsilon=0.2",
+                "entropy_factor=0.01", "critic_loss_factor=0.5", "epoch=8", "batch_size=2",
+                "train_every=1", "replay_buffer_size=64", "learning_rate=1e-3",
+                "clip_grad_norm=0.5"],
+}
+
+
+def _onpolicy_agent(algo, seed, s, a, hidden, batch, epoch, device):
+    from evomotion_tpu_torch.agents.actor_critic import ActorCriticAgent
+    from evomotion_tpu_torch.agents.ppo_gae import PpoGaeAgent
+    from evomotion_tpu_torch.agents.ppo_vanilla import PpoVanillaAgent
+
+    if algo == "actor_critic":
+        return ActorCriticAgent(seed, s, a, hidden, batch, ON_LR, 0.99, 0.01, 1e-4, 100000, 1,
+                                1, device=device)
+    if algo == "ppo_vanilla":
+        return PpoVanillaAgent(seed, s, a, hidden, 0.99, 0.2, 0.01, 0.5, epoch, batch, ON_LR,
+                               device=device)
+    return PpoGaeAgent(seed, s, a, hidden, 0.99, 0.95, 0.2, 0.01, 0.5, epoch, batch, 1, 8,
+                       ON_LR, 0.5, device=device)
+
+
+def _onpolicy_batch(algo, rng, s, a, sizes, agent):
+    """One update's inputs, numpy-made on the CPU: a step batch (A2C,
+    PPO-vanilla) or padded trajectories (PPO-GAE) built by the agent's own
+    ``pack`` from episode steps, with log-probs near the actor's own."""
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.buffers.replay import PpoEpisodeStep
+    from evomotion_tpu_torch.networks import distributions as D
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    if algo != "ppo_gae":
+        b = sizes[algo]
+        return [f32(rng.standard_normal((b, s))), f32(rng.uniform(-1, 1, (b, a))),
+                f32(rng.standard_normal((b, 1))), f32(rng.uniform(size=(b, 1)) < 0.05),
+                f32(rng.standard_normal((b, s)))]
+    n_traj, max_len = sizes["ppo_gae"]
+    lens = rng.integers(max_len // 2, max_len + 1, n_traj)
+    lens[0] = max_len
+    episodes = []
+    for n in lens:
+        states, actions = f32(rng.standard_normal((n, s))), f32(rng.uniform(-1, 1, (n, a)))
+        with torch.no_grad():
+            lp = D.truncated_normal_log_pdf(actions, *agent.actor(states))
+        lp = lp + f32(0.05 * rng.standard_normal((n, a)))
+        v = f32(0.3 * rng.standard_normal((n + 1, 1)))
+        episodes.append([PpoEpisodeStep(states[t], actions[t], float(rng.standard_normal()),
+                                        t == n - 1, lp[t], v[t], v[t + 1]) for t in range(n)])
+    return list(agent.pack(episodes))
+
+
+def onpolicy_update_check(args, dev, cpu, card):
+    """Phase 21: an update of each on-policy agent (A2C at batch 256,
+    PPO-vanilla on a 16,384-step block with 8 epochs, the sequential PPO-GAE
+    on 8 padded trajectories of up to 1800 steps) at the walker's widths on
+    the card and on the CPU, from the same seeded init, inputs and entropy
+    factor. None of these updates draws a random number.
+
+    Update 1, from the fresh init: the losses within UPDATE_TOL, every
+    parameter within 2 lr per epoch (Adam's first step is the sign of each
+    gradient, and at these widths a few are at f32 noise by chance, ROADMAP
+    Queue C trap 11; the PPO critics' output-bias and last LayerNorm-bias
+    gradients are zero in exact arithmetic at the first epoch), and A2C's
+    Adam moments (its one step) within UPDATE_TOL. The PPOs' Adam moments
+    after update 1 are printed, not held: their first epoch leaves the
+    card's and the CPU's parameters up to lr apart in those elements, and
+    each of the 7 later epochs' gradients inherits that (the actor's moments
+    read 1.0e-4 apart on an H100). Update 2, from one state (the CPU's after
+    update 1, loaded into the card's agent) on a second input, where Adam's
+    moments hold real gradients and no noise is amplified: the losses and
+    every parameter within UPDATE_TOL, and A2C's whole carry. The PPOs'
+    Adam moments are printed again: their clipped surrogate is not smooth,
+    and from the second epoch on a sample whose probability ratio lies
+    within f32 rounding of the clip edge 1 +- epsilon enters one device's
+    gradient and not the other's, moving a moment by that sample's share of
+    the batch gradient (PPO-vanilla's actor moments read 1.3e-4 apart on an
+    H100, its parameters 6.0e-5). Then the card's ms per update
+    (CUDA events), and its device launches and device time per update
+    (``torch.profiler``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from evomotion_tpu_torch.tools._profile import device_events
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    t0 = phase("onpolicy update check")
+    s, a = 371, 12
+    hidden, epoch = (16, 2) if cpu else (ON_HIDDEN, ON_EPOCH)
+    sizes = ({"actor_critic": 8, "ppo_vanilla": 64, "ppo_gae": (3, 40)} if cpu else
+             {"actor_critic": A2C_BATCH, "ppo_vanilla": VANILLA_BATCH,
+              "ppo_gae": (GAE_TRAJ, GAE_MAX_LEN)})
+    rng = np.random.default_rng(args.seed)
+    out = {}
+    for algo in ON_ALGOS:
+        n_epochs = 1 if algo == "actor_critic" else epoch
+        b = sizes[algo][0] if algo == "ppo_gae" else sizes[algo]
+        agents = [_onpolicy_agent(algo, args.seed, s, a, hidden, b, epoch, d)
+                  for d in (dev, "cpu")]
+        inputs = [_onpolicy_batch(algo, rng, s, a, sizes, agents[1]) for _ in range(2)]
+        shape = tuple(inputs[0][0].shape)
+
+        def update(ag, batch):
+            batch = [x.to(ag.device) for x in batch]
+            return ag.update(batch, 0.01) if algo == "actor_critic" else ag.update(batch)
+
+        res = {}
+        for n_upd, batch in enumerate(inputs, 1):
+            if n_upd == 2:
+                agents[0].load_carry_tree(agents[1].carry_tree())
+            losses = [update(ag, batch).cpu() for ag in agents]
+            loss_err = float((losses[0] - losses[1]).abs().max())
+            errs = _tree_errs(_flatten(agents[0].carry_tree()), _flatten(agents[1].carry_tree()))
+            params = {k: v for k, v in errs.items() if k.split("/")[0] in ("0", "2")}
+            actor_adam = {k: v for k, v in errs.items() if k.split("/")[0] == "1"}
+            critic_adam = {k: v for k, v in errs.items() if k.split("/")[0] == "3"}
+            if algo == "actor_critic":
+                held = errs if n_upd == 2 else {**actor_adam, **critic_adam}
+            else:
+                held = params if n_upd == 2 else {}
+            p_tol = 2 * ON_LR * n_epochs * (1 + 1e-3) if n_upd == 1 else UPDATE_TOL
+            p_worst = max(params, key=params.get)
+            adam = {**actor_adam, **critic_adam}
+            a_worst = max(adam, key=adam.get)
+            worst = max(held, key=held.get) if held else None
+            held_err = held[worst] if held else 0.0
+            print(f"{algo} update {n_upd}, card vs CPU ({agents[0].count_parameters():,} "
+                  f"parameters, input {shape}, {n_epochs} epoch(s)): losses max |diff| "
+                  f"{loss_err:.3e}; parameters {params[p_worst]:.3e} at {p_worst} (tol "
+                  f"{p_tol:.3g}); Adam moments {adam[a_worst]:.3e} at {a_worst} "
+                  f"({'held' if a_worst in held else 'printed'}); held tensors {len(held)}, "
+                  f"max |diff| "
+                  f"{held_err:.3e} (tol {UPDATE_TOL:g})", flush=True)
+            if not (loss_err <= UPDATE_TOL and held_err <= UPDATE_TOL
+                    and params[p_worst] <= p_tol):
+                fail(f"{algo} update {n_upd} on the card disagrees with the CPU: losses "
+                     f"{loss_err}, {worst} {held_err}, {p_worst} {params[p_worst]}")
+            res[f"update_{n_upd}"] = {"loss_err": loss_err, "held_err": held_err,
+                                      "param_err": params[p_worst], "adam_err": adam[a_worst]}
+        ms = launches = busy = None
+        if not cpu:
+            card_batch = [x.to(dev) for x in inputs[1]]
+            reps = {"actor_critic": 10, "ppo_vanilla": 3, "ppo_gae": 2}[algo]
+            ms = cuda_ms(lambda: update(agents[0], card_batch), reps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                update(agents[0], card_batch)
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            launches, busy = len(events), sum(d for _, d in events) / 1e3
+            print(f"{algo}: {ms:.3f} ms per update on the card (CUDA events, {reps} updates); "
+                  f"{launches} device launches (kernels, copies, fills) and {busy:.3f} ms of "
+                  f"device time per update (torch.profiler): the device busy "
+                  f"{100 * busy / ms:.1f}% [{card}]", flush=True)
+        out[algo] = {**res, "ms_per_update": ms, "launches_per_update": launches,
+                     "device_ms_per_update": busy}
+    done("onpolicy update check", t0)
+    return out
+
+
+@contextlib.contextmanager
+def perenv_steps():
+    """While open, counts the per-env physics steps (``PerEnvStep._run``
+    calls) in the one-element list it yields."""
+    from evomotion_tpu_torch.physics import perenv
+
+    steps = [0]
+    run_once = perenv.PerEnvStep._run
+
+    def counted(self, *a):
+        steps[0] += 1
+        return run_once(self, *a)
+
+    perenv.PerEnvStep._run = counted
+    try:
+        yield steps
+    finally:
+        perenv.PerEnvStep._run = run_once
+
+
+def seq_command(argv, label, per_step, dev, cpu, card, fat_cap, steps):
+    """One sequential CLI command (``train`` with one env, or ``run``): the
+    fat-row sweep's counts and the per-env physics steps (``steps``, from
+    :func:`perenv_steps`) are set to 0 just before and read just after, and
+    the sweep must have launched ``per_step`` times per physics step; its
+    first call is then held against its plain version. A ``train`` must
+    print finite meters, a ``run`` a finite episode line. Returns the
+    readings."""
+    import torch
+
+    from evomotion_tpu_torch import cli
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+
+    buf = io.StringIO()
+    fat_cap.arm(limit=1)
+    sf.KERNEL.launches = fat_cap.calls = steps[0] = 0
+    ts = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=dev)
+        if not cpu:
+            torch.cuda.synchronize()
+    finally:
+        fat_cap.armed = False
+    wall = time.perf_counter() - ts
+    n_phys, launches, calls = steps[0], sf.KERNEL.launches, fat_cap.calls
+    text = buf.getvalue().replace("\r", "\n")
+    lines = [x.strip() for x in text.splitlines() if x.strip()]
+    print(f"{label}: {lines[-1] if lines else '(no output)'}", flush=True)
+    print(f"{label}: {n_phys} physics steps, fat sweep calls {calls}, kernel launches "
+          f"{launches}, {wall:.2f} s, {wall / max(n_phys, 1) * 1e3:.2f} ms per physics step "
+          f"(host clock) [{card}]", flush=True)
+    if rc != 0:
+        fail(f"{label}: cli returned {rc}")
+    if n_phys < 1 or calls != per_step * n_phys or (not cpu and launches != calls):
+        fail(f"{label}: expected {per_step} fat sweep launches per physics step, got "
+             f"{launches} launches / {calls} calls in {n_phys} physics steps")
+    if "train" in argv:
+        meters = dict(re.findall(r"(\w+) = (\S+)", lines[-1] if lines else ""))
+        if not meters or not all(math.isfinite(float(v)) for v in meters.values()):
+            fail(f"{label}: meters {meters}")
+    else:
+        m = EPISODE_LINE.match(lines[-1] if lines else "")
+        if not m or not math.isfinite(float(m.group(3))):
+            fail(f"{label}: episode line {lines[-1:]}")
+    inp, fat_cap.captured = fat_cap.inputs, []
+    _, err, _ = fat_check(inp, cpu, f"{label}: first sweep call")
+    return {"physics_steps": n_phys, "launches": launches, "s": wall, "err": err}
+
+
+def robot_jump(args, dev, cpu, card, cap, fat_cap):
+    """Phase 22, robot_jump: one batched jump physics step of 4 envs on the
+    card (kernel) against the CPU (plain version), f32 rows; ``RobotJump``
+    at B=2048, reset (10 settle steps) and 60 steps of uniform random
+    actions (finite outputs, the spider down on the floor after the steps,
+    the slim sweep launched once per physics step with its counts set to 0
+    just before and read just after, its first call held against its plain
+    version); then the CLI's sequential ``run`` of one episode, the fat-row
+    sweep launched twice per physics step."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotJump, RobotJumpParams
+
+    t0 = phase("robot_jump")
+    n_envs, n_steps = (4, 3) if cpu else (JUMP_ENVS, JUMP_STEPS)
+    env = RobotJump(RobotJumpParams(), device=dev)
+    if not cpu:
+        env32 = RobotJump(RobotJumpParams(), device=dev)
+        env32.model = dataclasses.replace(env32.model, row_dtype="f32")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        state, _ = env32.reset(4, gen)
+        action = torch.rand((4, env.action_size), generator=gen, device=dev) * 2 - 1
+        step_err = batched_step_check(env32, state, action, 4, dev, "robot_jump, f32 rows")
+        del env32, state
+    cap.arm(limit=1)
+    try:
+        run = batched_rollout(env, n_envs, n_steps, args.seed + 2, cap, dev, cpu, card,
+                              "robot_jump batched", settled_after_reset=False)
+    finally:
+        cap.armed = False
+    kern_err = captured_check(cap.inputs, cpu, f"robot_jump batched sweep, B={n_envs}")
+    argv = ["cli", "robot_jump", "random", "--env_seed", str(args.seed)]
+    if cpu:  # rehearsal: a 1-frame settle and a 3-step bank
+        argv += ["--env_parameters", "reset_seconds=0.02", "initial_seconds=0.05"]
+    with perenv_steps() as steps:
+        seq = seq_command(argv + ["run", ".", "--episodes", "1"], "robot_jump run", 2, dev,
+                          cpu, card, fat_cap, steps)
+    done("robot_jump", t0)
+    return {"batched": run, "kernel_err": kern_err, "run": seq,
+            "step_err": None if cpu else step_err}
+
+
+def onpolicy_train(args, dev, cpu, card, cap, algo):
+    """Phase 23, the CLI's batched A2C or PPO-vanilla ``train``: ``cli.main([
+    "cli", "robot_walk", algo, "--num_envs", "2048", ..., "train", out, "-e",
+    "2", "-n", "1"])`` with hidden 256, horizon 64, batch 256, 8 epochs and
+    ``EVOMOTION_PROFILE=1`` (``profiled_train``: the slim sweep once per
+    physics step, its first call against its plain version). The losses
+    must be finite, every actor tensor must have moved from its seeded init,
+    and ``save_0`` must load back equal into a fresh agent on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.networks.modules import Actor
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    label = f"{algo} train"
+    t0 = phase(label)
+    n_envs, hidden, horizon, batch, epoch = (2, 16, 2, 4, 1) if cpu else (
+        2048, ON_HIDDEN, 64, 256, ON_EPOCH)
+    with tempfile.TemporaryDirectory() as out, small_walker(cpu):
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
+                str(args.seed), "--agent_parameters", f"hidden_size={hidden}",
+                f"horizon={horizon}", f"batch_size={batch}", f"epoch={epoch}",
+                "learning_rate=1e-3", "train", out, "-e", str(ON_TRAIN_ITERS), "-n", "1"]
+        prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, ON_TRAIN_ITERS,
+                                                            horizon, dev, cpu, cap)
+        updates = horizon if algo == "actor_critic" else epoch
+        print(f"{label} [{card}]: per iteration ({horizon} steps x {n_envs} envs, {updates} "
+              f"{'update events of batch ' + str(batch) if algo == 'actor_critic' else 'epochs over the block'}"
+              f"): rollout {ms['rollout']:.0f} ms, update {ms['update']:.0f} ms, iteration "
+              f"{ms['train_iter']:.0f} ms (StepTimer, 10 ms resolution); {rate:.0f} "
+              f"env-steps/s incl. the update; last actor loss {prog[-1][0]}, critic loss "
+              f"{prog[-1][1]}", flush=True)
+        save = os.path.join(out, "save_0")
+        s, a = env.observation_size, env.action_size
+        start = Actor(s, a, hidden, torch.Generator().manual_seed(args.seed))
+        agent = _onpolicy_agent(algo, 123, s, a, hidden, batch, epoch, dev)
+        agent.load(save)
+        moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
+                 for (n, p), q in zip(agent.actor.named_parameters(), start.parameters())}
+        if not all(x > 0 and math.isfinite(x) for x in moved.values()):
+            fail(f"{label}: actor params did not all move from their init: {moved}")
+        print(f"{label}: actor params moved from their init by max |diff| "
+              f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}",
+              flush=True)
+        for c in agent.SAVE:
+            with np.load(os.path.join(save, f"{c}.npz")) as raw:
+                got = _flatten(agent.tree(c))
+                if got.keys() != set(raw.keys()) or not all(
+                        np.array_equal(got[k], raw[k]) for k in got):
+                    fail(f"{label}: save_0 {c} did not load back equal")
+        count = int(np.load(os.path.join(save, "actor_optimizer.npz"))["0/count"])
+        # A2C's events wait for a batch of trainable transitions in the ring:
+        # at 2048 envs the first block holds one, in the rehearsal not yet
+        want = ON_TRAIN_ITERS * updates
+        if not (count == want or (cpu and 0 < count < want)):
+            fail(f"{label}: Adam count {count}, expected {want}")
+        print(f"{label}: save_0 ({len(agent.SAVE)} components) loads back equal on the card, "
+              f"Adam count {count}", flush=True)
+    done(label, t0)
+    return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err}
+
+
+def onpolicy_sequential(args, dev, cpu, card, fat_cap, ppo_save, ppo_hidden):
+    """Phase 24, the sequential tier with the on-policy agents: ``cli
+    cartpole <agent> ... train -e 2 -n 1`` then ``run`` of ``save_0`` for
+    A2C, PPO-vanilla and PPO-GAE (the fat-row sweep once per physics step);
+    ``cli robot_jump ppo_gae ... train -e 3 -n 1`` at hidden 256 (batch 2
+    trajectories: updates after episodes 2 and 3) then ``run``, and ``cli
+    robot_walk ppo_gae ... run`` of phase 15's batched ``save_0``, the
+    full-width spider on the sequential PPO-GAE (twice per physics step).
+    Each command through :func:`seq_command`."""
+    import tempfile
+
+    t0 = phase("onpolicy sequential")
+    gae = [f"seed={args.seed}", *ON_SEQ_PARAMS["ppo_gae"]]
+    jump_env = (["--env_parameters", "reset_seconds=0.02", "initial_seconds=0.05"] if cpu
+                else [])
+    total, errs, ms = 0, [], {}
+    with perenv_steps() as steps, tempfile.TemporaryDirectory() as tmp, small_walker(cpu):
+        cases = []
+        for agent in ON_ALGOS:
+            base = ["cli", "cartpole", agent, "--env_seed", str(args.seed), "--agent_parameters",
+                    f"seed={args.seed}", *ON_SEQ_PARAMS[agent], "--env_parameters",
+                    "mas_steps=300"]
+            out = os.path.join(tmp, agent)
+            cases += [(f"cartpole {agent} train", base + ["train", out, "-e", "2", "-n", "1"], 1),
+                      (f"cartpole {agent} run", base + ["run", os.path.join(out, "save_0"),
+                                                        "--episodes", "1"], 1)]
+        hid = "hidden_size=16" if cpu else f"hidden_size={ON_HIDDEN}"
+        jump = ["cli", "robot_jump", "ppo_gae", "--env_seed", str(args.seed), "--agent_parameters",
+                *gae, hid, *jump_env]
+        out = os.path.join(tmp, "jump")
+        cases += [("robot_jump ppo_gae train", jump + ["train", out, "-e", "3", "-n", "1"], 2),
+                  ("robot_jump ppo_gae run", jump + ["run", os.path.join(out, "save_0"),
+                                                     "--episodes", "1"], 2)]
+        walk = ["cli", "robot_walk", "ppo_gae", "--env_seed", str(args.seed),
+                "--agent_parameters", *gae, f"hidden_size={ppo_hidden}"]
+        if cpu:
+            walk += ["--env_parameters", "initial_remaining_seconds=0.05"]
+        cases.append(("robot_walk ppo_gae run of the batched save_0",
+                      walk + ["run", ppo_save, "--episodes", "1"], 2))
+        for label, argv, per_step in cases:
+            r = seq_command(argv, label, per_step, dev, cpu, card, fat_cap, steps)
+            total += r["launches"]
+            errs.append(r["err"])
+            ms[label] = r["s"] / r["physics_steps"] * 1e3
+    done("onpolicy sequential", t0)
+    return {"launches": total, "err": max(errs), "ms_per_physics_step": ms}
 
 
 def main(argv=None):
@@ -1835,18 +2236,28 @@ def main(argv=None):
     envlast = envlast_kernel_check(args, dev, cpu, n_envs, card, clock_mhz)
     prof = profilers(dev, cpu)
     walker = walker_eval(args, dev, cpu, card, cap)
-    train = ppo_train(args, dev, cpu, card, cap)
-    off_update = offpolicy_update_check(args, dev, cpu, card)
-    off_train = {algo: offpolicy_train(args, dev, cpu, card, cap, algo)
-                 for algo in ("cross_q", "soft_actor_critic")}
-    off_seq = offpolicy_sequential(args, dev, cpu, card, fat_cap)
-    c2 = c2_reading(args, dev, cpu, card)
+    with tempfile.TemporaryDirectory() as ppo_save:
+        train = ppo_train(args, dev, cpu, card, cap, ppo_save)
+        off_update = offpolicy_update_check(args, dev, cpu, card)
+        off_train = {algo: offpolicy_train(args, dev, cpu, card, cap, algo)
+                     for algo in ("cross_q", "soft_actor_critic")}
+        off_seq = offpolicy_sequential(args, dev, cpu, card, fat_cap)
+        c2 = c2_reading(args, dev, cpu, card)
+        on_update = onpolicy_update_check(args, dev, cpu, card)
+        jump = robot_jump(args, dev, cpu, card, cap, fat_cap)
+        on_train = {algo: onpolicy_train(args, dev, cpu, card, cap, algo)
+                    for algo in ("actor_critic", "ppo_vanilla")}
+        on_seq = onpolicy_sequential(args, dev, cpu, card, fat_cap, ppo_save, train["hidden"])
 
-    # ---- 21. kernels line and last line ----
+    # ---- 25. readings lines, kernels line and last line ----
     print(json.dumps({"offpolicy": {
         "update_check": off_update,
         "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
         "sequential_launches": off_seq["launches"], "c2": c2}}), flush=True)
+    print(json.dumps({"onpolicy": {
+        "update_check": on_update,
+        "train": {k: {x: v[x] for x in ("ms", "rate")} for k, v in on_train.items()},
+        "robot_jump": jump, "sequential": on_seq}}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -1855,14 +2266,19 @@ def main(argv=None):
         "replaces": REPLACES,
         "tpu_kernel": TPU_KERNEL,
         "launches": (main_run["launches"] + sched_run["launches"] + walker["launches"]
-                     + train["launches"] + sum(t["launches"] for t in off_train.values())),
+                     + train["launches"] + sum(t["launches"] for t in off_train.values())
+                     + jump["batched"]["launches"]
+                     + sum(t["launches"] for t in on_train.values())),
         "launches_by_path": {"batched canonical": main_run["launches"],
                              "batched scheduled": sched_run["launches"],
                              "walker eval": walker["launches"],
                              "ppo train": train["launches"],
-                             **{f"{k} train": t["launches"] for k, t in off_train.items()}},
+                             **{f"{k} train": t["launches"] for k, t in off_train.items()},
+                             "robot_jump batched": jump["batched"]["launches"],
+                             **{f"{k} train": t["launches"] for k, t in on_train.items()}},
         "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"],
-                           *(t["err"] for t in off_train.values())),
+                           *(t["err"] for t in off_train.values()), jump["kernel_err"],
+                           *(t["err"] for t in on_train.values())),
         "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),
@@ -1879,11 +2295,14 @@ def main(argv=None):
         "source": "evomotion_tpu_torch/kernels/csrc/solver_sweep.cu",
         "replaces": FAT_REPLACES,
         "tpu_kernel": FAT_TPU_KERNEL,
-        "launches": seq["launches"] + off_seq["launches"],
+        "launches": (seq["launches"] + off_seq["launches"] + jump["run"]["launches"]
+                     + on_seq["launches"]),
         "launches_by_path": {"sequential run": seq["launches"],
-                             "offpolicy sequential train and run": off_seq["launches"]},
+                             "offpolicy sequential train and run": off_seq["launches"],
+                             "robot_jump run": jump["run"]["launches"],
+                             "onpolicy sequential train and run": on_seq["launches"]},
         "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err,
-                           off_seq["err"]),
+                           off_seq["err"], jump["run"]["err"], on_seq["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": fat["times"].get("ms"),

@@ -4,20 +4,22 @@
 Reference: evo_motion_networks/src/agent_factory.cpp. Agent parameters have
 NO defaults: a missing key raises ValueError (agent_factory.cpp:26-30 throws
 std::invalid_argument). Registry names match AGENT_FACTORY_CONSTRUCTORS
-(:189-206). Ported: the debug agents and the off-policy agents
-``soft_actor_critic`` and ``cross_q``. The other learning agents are listed
-and raise NotImplementedError naming their ROADMAP item (A8) when
-``create_agent`` is called; ``ppo_gae`` trains on the batched tier without
-an agent object (the CLI's ``train --num_envs N``,
-``train.driver.train_batched``). ``create_agent`` builds the agent on
-``device`` (default ``cuda``).
+(:189-206). Ported: the debug agents, the on-policy agents
+``actor_critic``, ``ppo_vanilla`` and ``ppo_gae``, and the off-policy agents
+``soft_actor_critic`` and ``cross_q``. The liquid agents are listed and
+raise NotImplementedError naming their ROADMAP item (A8) when
+``create_agent`` is called. ``create_agent`` builds the agent on ``device``
+(default ``cuda``).
 """
 
 from __future__ import annotations
 
+from .actor_critic import ActorCriticAgent
 from .base import Agent
 from .cross_q import CrossQAgent
 from .debug_agents import ConstantAgent, RandomAgent
+from .ppo_gae import PpoGaeAgent
+from .ppo_vanilla import PpoVanillaAgent
 from .soft_actor_critic import SoftActorCriticAgent
 
 
@@ -59,6 +61,17 @@ class ConstantAgentFactory(AgentFactory):
         return ConstantAgent(action_space, self.get_float("action_value"))
 
 
+class ActorCriticFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return ActorCriticAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("hidden_size"),
+            self.get_int("batch_size"), self.get_float("lr"), self.get_float("gamma"),
+            self.get_float("entropy_start_factor"), self.get_float("entropy_end_factor"),
+            self.get_int("entropy_steps"), self.get_int("replay_buffer_size"),
+            self.get_int("train_every"), device=device,
+        )
+
+
 class SoftActorCriticFactory(AgentFactory):
     def create_agent(self, state_space, action_space, device=None):
         return SoftActorCriticAgent(
@@ -67,6 +80,29 @@ class SoftActorCriticFactory(AgentFactory):
             self.get_int("batch_size"), self.get_int("epoch"),
             self.get_float("learning_rate"), self.get_float("gamma"), self.get_float("tau"),
             self.get_int("replay_buffer_size"), self.get_int("train_every"), device=device,
+        )
+
+
+class PpoGaeFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return PpoGaeAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("hidden_size"),
+            self.get_float("gamma"), self.get_float("lambda"), self.get_float("epsilon"),
+            self.get_float("entropy_factor"), self.get_float("critic_loss_factor"),
+            self.get_int("epoch"), self.get_int("batch_size"), self.get_int("train_every"),
+            self.get_int("replay_buffer_size"), self.get_float("learning_rate"),
+            self.get_float("clip_grad_norm"), device=device,
+        )
+
+
+class PpoVanillaFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return PpoVanillaAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("hidden_size"),
+            self.get_float("gamma"), self.get_float("epsilon"),
+            self.get_float("entropy_factor"), self.get_float("critic_loss_factor"),
+            self.get_int("epoch"), self.get_int("batch_size"), self.get_float("learning_rate"),
+            device=device,
         )
 
 
@@ -90,18 +126,18 @@ def _not_ported(name: str, item: str):
     return _Factory
 
 
-# the other sequential learning agents (act/done/save/load, the CLI's
-# `train --num_envs 1` and `run` of a trained agent) are ROADMAP A8
+# the liquid agents (act/done/save/load, the CLI's `train --num_envs 1` and
+# `run` of a trained agent) are ROADMAP A8
 AGENT_FACTORY_CONSTRUCTORS = {
     "random": RandomAgentFactory,
     "constant": ConstantAgentFactory,
-    "actor_critic": _not_ported("actor_critic", "A8"),
+    "actor_critic": ActorCriticFactory,
     "actor_critic_liquid": _not_ported("actor_critic_liquid", "A8"),
     "soft_actor_critic": SoftActorCriticFactory,
     "soft_actor_critic_liquid": _not_ported("soft_actor_critic_liquid", "A8"),
-    "ppo_gae": _not_ported("ppo_gae", "A8"),
+    "ppo_gae": PpoGaeFactory,
     "ppo_gae_liquid": _not_ported("ppo_gae_liquid", "A8"),
-    "ppo_vanilla": _not_ported("ppo_vanilla", "A8"),
+    "ppo_vanilla": PpoVanillaFactory,
     "cross_q": CrossQFactory,
 }
 

@@ -17,13 +17,13 @@ critics. Weights are drawn from a CPU generator seeded with ``seed``
 (actor, critic 1, critic 2: the same weights on every device); JAX's own
 init cannot be replayed, so the tests carry JAX's weights across.
 
-:class:`OffPolicyAgent` holds what SAC and CrossQ share: the sequential
-``act``/``done`` bookkeeping (the one-step-late reward of the reference,
-``buffers.replay``), the ``train_every``/``epoch`` cadence, the meters, and
-checkpoints in the JAX key scheme (one ``<component>.npz`` each; Adam as
-optax lays out ``adam``, or ``chain(clip_by_global_norm, adam)`` when
-``grad_norm_clip`` is set). ``carry_tree`` gives the JAX agent's
-``_carry()`` tuple as numpy pytrees, ``load_carry_tree`` reads it back.
+:class:`OffPolicyAgent` holds what SAC and CrossQ share beyond
+``agents.base.StepBufferAgent`` (the sequential ``act``/``done``
+bookkeeping, checkpoints and ``carry_tree`` in the JAX key scheme and
+carry layout): the ``train_every``/``epoch`` cadence, the meters, the
+uniforms of an update, and ``snapshot``/``restore`` for the nan guard.
+Adam is laid out as optax lays out ``adam``, or ``chain(
+clip_by_global_norm, adam)`` when ``grad_norm_clip`` is set.
 """
 
 from __future__ import annotations
@@ -33,15 +33,13 @@ import copy
 import torch
 from torch import nn
 
-from ..buffers.replay import EpisodeStep, ReplayBuffer
-from ..convert import adam_tree, load_adam, load_params, load_state, params_tree, state_tree
+from ..buffers.replay import ReplayBuffer
+from ..convert import adam_tree, load_adam
 from ..device import resolve
 from ..networks import distributions as D
-from ..networks.modules import Actor, QNetwork, count_parameters, soft_update
-from ..train.checkpoint import load_component, save_component
+from ..networks.modules import Actor, QNetwork, soft_update
 from ..train.metrics import LossMeter
-from ..train.ppo_batched import clip_by_global_norm_
-from .base import Agent
+from .base import StepBufferAgent
 
 
 class Entropy(nn.Module):
@@ -53,18 +51,13 @@ class Entropy(nn.Module):
         self.log_alpha = nn.Parameter(torch.zeros(1))
 
 
-class OffPolicyAgent(Agent):
+class OffPolicyAgent(StepBufferAgent):
     """Shared body of :class:`SoftActorCriticAgent` and ``CrossQAgent``.
 
     A subclass builds ``actor``, ``critic_1``, ``critic_2`` and ``entropy``
     (and anything else its update needs), calls :meth:`_setup`, and defines
-    ``update`` and the component lists ``SAVE`` (the JAX agent's save order)
-    and ``CARRY`` (its ``_carry()`` order). A component name ending in
-    ``_optimizer`` is the Adam state of the module it prefixes, one ending
-    in ``_state`` the module's buffers, any other a module's parameters."""
-
-    SAVE: tuple[str, ...] = ()
-    CARRY: tuple[str, ...] = ()
+    ``update`` and the component lists ``SAVE`` and ``CARRY`` (its
+    ``_carry()`` order, :class:`~.base.ComponentAgent`)."""
 
     def _setup(self, seed, action_space, batch_size, epoch, learning_rate, replay_buffer_size,
                train_every, grad_norm_clip, betas=(0.9, 0.999)):
@@ -91,22 +84,6 @@ class OffPolicyAgent(Agent):
         self.rewards_meter = LossMeter("rewards", 64)
 
     # -- one update -----------------------------------------------------------
-
-    def _uniform(self, shape) -> torch.Tensor:
-        return torch.rand(shape, generator=self.generator, device=self.device)
-
-    def _step(self, name: str, loss: torch.Tensor) -> torch.Tensor:
-        """One Adam step of module ``name`` on ``loss`` (clipped by optax's
-        rule when ``grad_norm_clip`` is set); returns the loss, detached."""
-        params = list(getattr(self, name).parameters())
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
-            p.grad = g
-        if self.clip is not None:
-            clip_by_global_norm_(params, self.clip)
-        getattr(self, f"{name}_opt").step()
-        for p in params:
-            p.grad = None
-        return loss.detach()
 
     def _draws(self, b: int, u_next, u_curr):
         a = self.actor.mu.w.shape[0]
@@ -142,43 +119,16 @@ class OffPolicyAgent(Agent):
 
     # -- the sequential tier ----------------------------------------------------
 
-    def act(self, state, reward):
-        """state [1, S] -> action [1, A], a draw of the policy; stores the
-        transition and patches the previous one with ``reward``."""
-        state = state.to(self.device)
-        with torch.no_grad():
-            mu, sigma = self.actor(state)
-            action = D.truncated_normal_sample(mu, sigma, u=self._uniform(mu.shape))
-        s = state[0]
-        if not self.replay_buffer.empty():
-            self.replay_buffer.update_last(reward=reward, next_state=s, done=False)
-        self.replay_buffer.add(EpisodeStep(s, action[0], 0.0, False, s))
-        self._check_train()
-        self.curr_episode_step += 1
-        self.global_curr_step += 1
-        return action
-
     def done(self, state, reward):
-        self.replay_buffer.update_last(reward=reward, next_state=state.to(self.device)[0],
-                                       done=True)
+        super().done(state, reward)
         self.rewards_meter.add(reward)
-        self.episode_steps_meter.add(float(self.curr_episode_step))
-        self.curr_episode_step = 0
 
     def _check_train(self):
         if not (self.global_curr_step % self.train_every == self.train_every - 1
                 and self.replay_buffer.has_enough(self.batch_size)):
             return
-        def col(xs):
-            return torch.tensor(xs, dtype=torch.float32, device=self.device)[:, None]
-
         for _ in range(self.epoch):
-            steps = self.replay_buffer.sample(self.batch_size)
-            batch = (torch.stack([s.state for s in steps]),
-                     torch.stack([s.action for s in steps]),
-                     col([s.reward for s in steps]),
-                     col([1.0 if s.done else 0.0 for s in steps]),
-                     torch.stack([s.next_state for s in steps]))
+            batch = self._batch(self.replay_buffer.sample(self.batch_size))
             a, c1, c2, e = self.update(batch).tolist()  # the meters: one read per update
             self.actor_loss_meter.add(a)
             self.critic_1_loss_meter.add(c1)
@@ -186,40 +136,7 @@ class OffPolicyAgent(Agent):
             self.entropy_loss_meter.add(e)
             self.curr_train_step += 1
 
-    # -- state, checkpoints ---------------------------------------------------
-
-    def _parts(self, component: str):
-        """(kind, module, optimizer) of a component: kind ``optimizer``,
-        ``state`` or ``params``."""
-        for kind in ("optimizer", "state"):
-            if component.endswith(f"_{kind}"):
-                name = component[: -len(kind) - 1]
-                return kind, getattr(self, name), getattr(self, f"{name}_opt", None)
-        return "params", getattr(self, component), None
-
-    def tree(self, component: str):
-        """``component`` as the JAX agent's pytree (numpy arrays)."""
-        kind, module, opt = self._parts(component)
-        if kind == "optimizer":
-            return adam_tree(opt, module, clip=self.clip is not None)
-        return state_tree(module) if kind == "state" else params_tree(module)
-
-    def load_tree(self, component: str, tree) -> None:
-        kind, module, opt = self._parts(component)
-        if kind == "optimizer":
-            load_adam(opt, module, tree)
-        elif kind == "state":
-            load_state(module, tree)
-        else:
-            load_params(module, tree)
-
-    def carry_tree(self) -> tuple:
-        """The JAX agent's ``_carry()``, as numpy pytrees."""
-        return tuple(self.tree(c) for c in self.CARRY)
-
-    def load_carry_tree(self, carry) -> None:
-        for c, tree in zip(self.CARRY, carry):
-            self.load_tree(c, tree)
+    # -- state ---------------------------------------------------------------
 
     def tensors(self) -> list[torch.Tensor]:
         """Every tensor an update changes: parameters and buffers of every
@@ -242,24 +159,9 @@ class OffPolicyAgent(Agent):
         for t, s in zip(self.tensors(), snap):
             t.copy_(s)
 
-    def save(self, folder):
-        for c in self.SAVE:
-            save_component(folder, c, self.tree(c))
-
-    def load(self, folder):
-        for c in self.SAVE:
-            self.load_tree(c, load_component(folder, c, self.tree(c)))
-
     def get_metrics(self):
         return [self.actor_loss_meter, self.critic_1_loss_meter, self.critic_2_loss_meter,
                 self.entropy_loss_meter, self.episode_steps_meter, self.rewards_meter]
-
-    def set_eval(self, eval_mode):
-        pass
-
-    def count_parameters(self):
-        return sum(count_parameters(module) for kind, module, _ in map(self._parts, self.SAVE)
-                   if kind == "params")
 
 
 class SoftActorCriticAgent(OffPolicyAgent):

@@ -10,13 +10,13 @@ The reference CLI surface (src/main.cpp:25-152):
 
 ``run`` is ported (the sequential tier: one world, the per-env physics step,
 on the card), and so are ``train --num_envs N`` with N > 1 for ``ppo_gae``,
-``soft_actor_critic`` and ``cross_q`` (the batched tier:
-``train.driver.train_batched``) and the sequential ``train`` (``--num_envs
-1``, ``train.driver.train``) for the agents the port has
-(``soft_actor_critic``, ``cross_q``); ``run`` then loads the trained agent.
-The other agents, the other batched trainers, ``gui`` and run's viewer
-options (--record, --html, --live) parse but raise NotImplementedError
-naming their ROADMAP item. --cuda and --env_num_threads are accepted for
+``actor_critic``, ``ppo_vanilla``, ``soft_actor_critic`` and ``cross_q``
+(the batched tier: ``train.driver.train_batched``) and the sequential
+``train`` (``--num_envs 1``, ``train.driver.train``) for the agents the
+port has (those five); ``run`` then loads the trained agent, a ``ppo_gae``
+checkpoint of the batched tier too. The liquid agents, their batched
+trainers, ``gui`` and run's viewer options (--record, --html, --live) parse
+but raise NotImplementedError naming their ROADMAP item. --cuda and --env_num_threads are accepted for
 surface parity and ignored.
 """
 
@@ -108,7 +108,7 @@ def main(argv=None, device=None):
             return train_batched(args.env_seed, env_factory, agent_kv, args.num_envs,
                                  args.episodes, args.nb_saves, args.output_path,
                                  agent_name=args.agent_name, device=device)
-        # an agent the port does not have raises from its factory (ROADMAP A8)
+        # a liquid agent raises from its factory (ROADMAP A8)
         return train(args.env_seed, agent_factory, env_factory, args.episodes, args.nb_saves,
                      args.output_path, device=device)
     if args.live or args.html:

@@ -2,24 +2,14 @@
 
 Mirrors ENV_FACTORY_CONSTRUCTORS + get_environment_factory
 (env_factory.cpp:108-120): unknown names raise ValueError (the reference
-throws std::invalid_argument). ``robot_jump`` is listed but not ported yet.
+throws std::invalid_argument).
 """
 
 from __future__ import annotations
 
 from .cartpole import CartPoleFactory
 from .cartpole3d import CartPole3dFactory
-from .robot import RobotWalkFactory
-
-
-class RobotJumpFactory:
-    """robot_jump: not ported yet (ROADMAP A6)."""
-
-    name = "robot_jump"
-
-    def __init__(self, parameters: dict[str, str]):
-        raise NotImplementedError("robot_jump is not ported yet (ROADMAP A6)")
-
+from .robot import RobotJumpFactory, RobotWalkFactory
 
 ENV_FACTORY_CONSTRUCTORS = {
     "cartpole": CartPoleFactory,

@@ -1,7 +1,9 @@
-"""robot_walk in PyTorch, batch-native (port of ``evomotion_tpu/envs/robot.py``).
+"""robot_walk and robot_jump in PyTorch, batch-native (port of
+``evomotion_tpu/envs/robot.py``).
 
-Reference: evo_motion_model/src/env/robot_walk.{h,cpp} over the spider
-skeleton (17 members, 12 hinges + 4 fixed, 12 muscles -> obs 371, act 12).
+Reference: evo_motion_model/src/env/robot_walk.{h,cpp} and
+robot_jump.{h,cpp} over the spider skeleton (17 members, 12 hinges + 4
+fixed, 12 muscles -> obs 371, act 12).
 
 Observation layout (skeleton.cpp:140-160 get_states), with the reference's
 quirks: RootMemberState(root) ++ MemberState(non-root members, JSON order)
@@ -12,13 +14,19 @@ very first observation only. Member extra: world offset from root; root
 extra: [log(|p|+1), p.y, atan2(p.z, p.x)]. Muscle state: slider linear pos,
 slider applied impulse, both p2p applied impulses.
 
-Reward = root v_z; a time bank of remaining steps decrements while
-v < minimal_velocity and increments while v >= target_velocity; fail at
-<= 0, win at max_episode_seconds. Reset: random yaw/roll/pitch in
-+-(2pi/3)/2 around spawn (1, 0.25, 2), then two settle loops of reset_frames
-(60 physics steps). In ``step`` a finished episode teleports and settles
-again one physics step per env step, so a rollout of N env steps takes
-exactly N physics steps (and N sweep launches).
+robot_walk (robot_walk.cpp:56-104): reward = root v_z; a time bank of
+remaining steps decrements while v < minimal_velocity and increments while
+v >= target_velocity; fail at <= 0, win at max_episode_seconds. Reset:
+random yaw/roll/pitch in +-(2pi/3)/2 around spawn (1, 0.25, 2), then two
+settle loops of reset_frames (60 physics steps).
+
+robot_jump (robot_jump.cpp:67-104): reward = max(v_y, 0) + v_z, the same
+time bank on it; fail at remaining < 0 (strictly), tilt +-(pi/3)/2, ONE
+settle loop of reset_seconds / DT frames (10).
+
+In ``step`` a finished episode teleports and settles again one physics
+step per env step, so a rollout of N env steps takes exactly N physics
+steps (and N sweep launches).
 
 Random draws come from an explicit ``torch.Generator``, or, with ``mt_seed``,
 from the reference's std::mt19937 stream (the reset table of
@@ -28,9 +36,8 @@ Two tiers, chosen where the env is built: the batched tier (default) steps
 a batch of worlds with the batched step; ``per_env_step=True`` steps each
 world with the per-env step (fat rows, dense member narrowphase, the
 fat-row sweep kernel twice per physics step), the JAX package's sequential
-tier. :class:`RobotWalkFactory` makes the sequential tier, for the CLI.
-
-RobotJump is a later slice (ROADMAP A6).
+tier. :class:`RobotWalkFactory` and :class:`RobotJumpFactory` make the
+sequential tier, for the CLI.
 """
 
 from __future__ import annotations
@@ -79,20 +86,10 @@ class RobotEnvState(NamedTuple):
     diag_p2p_imp: torch.Tensor  # [B, 2M] (a, b interleaved by muscle)
 
 
-@dataclasses.dataclass(frozen=True)
-class RobotWalkParams:
-    """Defaults from RobotWalkFactory (env_factory.cpp:74-83)."""
-
-    skeleton_json_path: str = DEFAULT_SKELETON
-    initial_remaining_seconds: float = 1.0
-    max_episode_seconds: float = 30.0
-    target_velocity: float = 0.5
-    minimal_velocity: float = 0.1
-    reset_frames: int = 30
-
-
-class RobotWalk:
-    """robot_walk on the port's physics step, batch first.
+class _RobotEnvBase:
+    """The spider env on the port's physics step, batch first; subclasses
+    define the reward, the termination and the reset's settle and tilt
+    through the hooks below.
 
     ``per_env_step`` selects the physics step: False, the batched step;
     True, the per-env step (the sequential tier, a batch of one).
@@ -100,12 +97,12 @@ class RobotWalk:
     Replace :attr:`model` (``dataclasses.replace``) to change a model field;
     the physics step is rebuilt for it."""
 
-    def __init__(self, params: RobotWalkParams = RobotWalkParams(),
-                 mt_seed: int | None = None, device=None, per_env_step: bool = False):
-        self.params = params
+    def __init__(self, skeleton_json_path: str, reset_frames: int, minimal_velocity: float,
+                 target_velocity: float, mt_seed: int | None = None, device=None,
+                 per_env_step: bool = False):
         self.device = resolve(device)
         self.per_env_step = per_env_step
-        self.spec = robot_json.load(params.skeleton_json_path)
+        self.spec = robot_json.load(skeleton_json_path)
         model, self.meta = compile_robot(self.spec)
         model = dataclasses.replace(model, solver=default_solver())
         self._axes = torch.eye(3, device=self.device)
@@ -113,9 +110,9 @@ class RobotWalk:
         self.model = model
         self.observation_size = self.meta.obs_dim
         self.action_size = self.meta.action_dim
-        self.reset_frames = params.reset_frames
-        self.minimal_velocity = params.minimal_velocity
-        self.target_velocity = params.target_velocity
+        self.reset_frames = reset_frames
+        self.minimal_velocity = minimal_velocity
+        self.target_velocity = target_velocity
         dev = self.device
         self._mt_table = None
         if mt_seed is not None:
@@ -157,22 +154,38 @@ class RobotWalk:
         self._first_pos = torch.as_tensor(model.init_pos[sk], **f32)
         self._first_quat = torch.as_tensor(model.init_quat[sk], **f32)
 
+    # -- subclass hooks ---------------------------------------------------
+
     @property
     def settle_total(self) -> int:
-        # reset_engine settles reset_frames twice (robot_walk.cpp:98,103)
-        return 2 * self.reset_frames
+        """Physics steps of settling per reset."""
+        raise NotImplementedError
 
     @property
     def max_steps(self) -> int:
-        return int(self.params.max_episode_seconds / DT)
+        raise NotImplementedError
 
     @property
     def initial_remaining(self) -> int:
-        return int(self.params.initial_remaining_seconds / DT)
+        raise NotImplementedError
 
     @property
     def tilt_limit(self) -> float:
-        return math.pi * 2.0 / 3.0
+        raise NotImplementedError
+
+    def _reward_velocity(self, physics: PhysicsState) -> torch.Tensor:
+        """[B]: the reward, from the root's velocity."""
+        raise NotImplementedError
+
+    def _fail(self, remaining: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _bank_velocity(self, physics: PhysicsState) -> torch.Tensor:
+        """[B]: the velocity the time bank compares with its thresholds."""
+        return self._reward_velocity(physics)
+
+    def _root_vel(self, physics: PhysicsState) -> torch.Tensor:
+        return physics.lin_vel[:, self.meta.root_body]
 
     # ------------------------------------------------------------------
 
@@ -229,8 +242,8 @@ class RobotWalk:
 
     def _compute_step(self, state: RobotEnvState):
         obs, lin, ang = self._obs(state)
-        v = state.physics.lin_vel[:, self.meta.root_body, 2]
-        reward = v
+        reward = self._reward_velocity(state.physics)
+        v = self._bank_velocity(state.physics)
         remaining = state.remaining_steps
         remaining = torch.where(
             v < self.minimal_velocity,
@@ -246,7 +259,7 @@ class RobotWalk:
         lin = torch.where(finite[:, None, None], lin, 0.0)
         ang = torch.where(finite[:, None, None], ang, 0.0)
         win = (state.curr_step >= self.max_steps) & finite
-        fail = (remaining <= 0) | ~finite
+        fail = self._fail(remaining) | ~finite
         done = win | fail
         state = state._replace(
             curr_step=state.curr_step + 1,
@@ -378,6 +391,99 @@ class RobotWalk:
         return out_state, out_res
 
 
+@dataclasses.dataclass(frozen=True)
+class RobotWalkParams:
+    """Defaults from RobotWalkFactory (env_factory.cpp:74-83)."""
+
+    skeleton_json_path: str = DEFAULT_SKELETON
+    initial_remaining_seconds: float = 1.0
+    max_episode_seconds: float = 30.0
+    target_velocity: float = 0.5
+    minimal_velocity: float = 0.1
+    reset_frames: int = 30
+
+
+class RobotWalk(_RobotEnvBase):
+    """robot_walk: reward root v_z, two settle loops, tilt +-(2pi/3)/2."""
+
+    def __init__(self, params: RobotWalkParams = RobotWalkParams(),
+                 mt_seed: int | None = None, device=None, per_env_step: bool = False):
+        self.params = params
+        super().__init__(params.skeleton_json_path, params.reset_frames,
+                         params.minimal_velocity, params.target_velocity, mt_seed, device,
+                         per_env_step)
+
+    @property
+    def settle_total(self) -> int:
+        # reset_engine settles reset_frames twice (robot_walk.cpp:98,103)
+        return 2 * self.reset_frames
+
+    @property
+    def max_steps(self) -> int:
+        return int(self.params.max_episode_seconds / DT)
+
+    @property
+    def initial_remaining(self) -> int:
+        return int(self.params.initial_remaining_seconds / DT)
+
+    @property
+    def tilt_limit(self) -> float:
+        return math.pi * 2.0 / 3.0
+
+    def _reward_velocity(self, physics):
+        return self._root_vel(physics)[:, 2]
+
+    def _fail(self, remaining):
+        return remaining <= 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RobotJumpParams:
+    """Defaults from RobotJumpFactory (env_factory.cpp:91-100)."""
+
+    skeleton_json_path: str = DEFAULT_SKELETON
+    minimal_velocity: float = 0.1
+    target_velocity: float = 0.5
+    max_seconds: float = 30.0
+    initial_seconds: float = 1.0
+    reset_seconds: float = 1.0 / 6.0
+
+
+class RobotJump(_RobotEnvBase):
+    """robot_jump: reward max(v_y, 0) + v_z, one settle loop, tilt
+    +-(pi/3)/2, fail strictly below an empty time bank."""
+
+    def __init__(self, params: RobotJumpParams = RobotJumpParams(),
+                 mt_seed: int | None = None, device=None, per_env_step: bool = False):
+        self.params = params
+        super().__init__(params.skeleton_json_path, int(params.reset_seconds / DT),
+                         params.minimal_velocity, params.target_velocity, mt_seed, device,
+                         per_env_step)
+
+    @property
+    def settle_total(self) -> int:
+        return self.reset_frames  # single settle loop (robot_jump.cpp:101)
+
+    @property
+    def max_steps(self) -> int:
+        return int(self.params.max_seconds / DT)
+
+    @property
+    def initial_remaining(self) -> int:
+        return int(self.params.initial_seconds / DT)
+
+    @property
+    def tilt_limit(self) -> float:
+        return math.pi / 3.0
+
+    def _reward_velocity(self, physics):
+        v = self._root_vel(physics)
+        return torch.clamp_min(v[:, 1], 0.0) + v[:, 2]
+
+    def _fail(self, remaining):
+        return remaining < 0  # strictly (robot_jump.cpp:79)
+
+
 class RobotWalkFactory:
     """Registry factory (env_factory.cpp:74-83): string parameters with
     defaults, parsed by the defaults' types."""
@@ -404,6 +510,31 @@ class RobotWalkFactory:
                 target_velocity=g("target_velocity", 0.5),
                 minimal_velocity=g("minimal_velocity", 0.1),
                 reset_frames=g("reset_frames", 30),
+            ),
+            mt_seed=seed if mt_parity else None, device=device, per_env_step=per_env_step,
+        )
+
+
+class RobotJumpFactory:
+    """Registry factory (env_factory.cpp:91-100); ``make`` takes the
+    arguments of :meth:`RobotWalkFactory.make`."""
+
+    name = "robot_jump"
+
+    def __init__(self, parameters: dict[str, str]):
+        self.parameters = parameters
+
+    def make(self, seed: int = 1234, mt_parity: bool = True, device=None,
+             per_env_step: bool = True) -> RobotJump:
+        g = lambda k, d: get_value(self.parameters, k, d)  # noqa: E731
+        return RobotJump(
+            RobotJumpParams(
+                skeleton_json_path=g("skeleton_json_path", DEFAULT_SKELETON),
+                minimal_velocity=g("minimal_velocity", 0.1),
+                target_velocity=g("target_velocity", 0.5),
+                max_seconds=g("max_seconds", 30.0),
+                initial_seconds=g("initial_seconds", 1.0),
+                reset_seconds=g("reset_seconds", 1.0 / 6.0),
             ),
             mt_seed=seed if mt_parity else None, device=device, per_env_step=per_env_step,
         )

@@ -5,13 +5,14 @@
 physics step), act/done per step, ``save_<i>/`` every ``episodes``
 episodes. ``train_batched``: the batched trainers behind ``train
 --num_envs N`` (N > 1): N envs in lockstep on the batched physics step,
-PPO-GAE (``ppo_batched``) or SAC and CrossQ with a device ring
-(``offpolicy_batched``), ``save_<i>/`` checkpoints of the reference's
-components. ``infer``: src/infer.cpp:19-106: load an agent, then step one
-env until done, episode after episode, on the per-env physics step.
+PPO-GAE (``ppo_batched``), A2C and PPO-vanilla (``onpolicy_step_batched``)
+or SAC and CrossQ with a device ring (``offpolicy_batched``), ``save_<i>/``
+checkpoints of the reference's components. ``infer``: src/infer.cpp:19-106:
+load an agent, then step one env until done, episode after episode, on the
+per-env physics step.
 
-Not ported yet: the other learning agents (ROADMAP A8), the other batched
-trainers (A7) and the recording hooks (A11).
+Not ported yet: the liquid agents (ROADMAP A8), their batched trainers (A7)
+and the recording hooks (A11).
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ from ..convert import adam_tree
 from ..device import resolve
 from .checkpoint import save_component
 from .offpolicy_batched import BatchedOffPolicy, OffPolicyConfig
+from .onpolicy_step_batched import BatchedStepTrainer, StepTrainerConfig
 from .ppo_batched import BatchedPpo, PpoConfig
 from .profiling import StepTimer, trace
 
 # batched agents of the JAX package that the port does not train yet
-_BATCHED_LATER = ("soft_actor_critic_liquid", "actor_critic", "ppo_vanilla", "ppo_gae_liquid")
+_BATCHED_LATER = ("soft_actor_critic_liquid", "ppo_gae_liquid")
 
 
 def _progress(prefix: str, i: int, total: int, t0: float) -> None:
@@ -98,8 +100,9 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
 
     ``episodes`` is read as train iterations per save (each covers
     horizon * num_envs env steps). Agents: ``ppo_gae`` / ``ppo`` (PPO-GAE,
-    ``ppo_batched.py``) and ``soft_actor_critic`` / ``cross_q`` (device
-    ring, ``offpolicy_batched.py``). Agent parameters and their defaults are
+    ``ppo_batched.py``), ``actor_critic`` / ``ppo_vanilla``
+    (``onpolicy_step_batched.py``) and ``soft_actor_critic`` / ``cross_q``
+    (device ring, ``offpolicy_batched.py``). Agent parameters and their defaults are
     the JAX package's (``evomotion_tpu/train/driver.py``); ``seed`` defaults
     to the env seed and ``horizon`` (64) is the rollout length. PPO:
     ``hidden_size`` 256, ``gamma`` 0.99, ``lambda`` 0.95, ``epsilon`` 0.2,
@@ -112,7 +115,13 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
     ``train_every`` 1, ``replay_buffer_size`` 262144 (the ring), and, beyond
     the JAX driver's keys, ``nan_guard`` (``true``/``false``, default false:
     skip an update whose losses are not finite, as the walker tool always
-    does); each save writes the agent's components. ``EVOMOTION_PROFILE=1``
+    does); each save writes the agent's components. A2C / PPO-vanilla:
+    ``hidden_size`` 256, ``batch_size`` 256, ``learning_rate`` 1e-3,
+    ``gamma`` 0.99, ``entropy_start_factor`` 0.01, ``entropy_end_factor``
+    1e-4, ``entropy_steps`` 100000, ``epsilon`` 0.2, ``entropy_factor``
+    0.01, ``critic_loss_factor`` 0.5, ``epoch`` 8, ``train_every`` 1,
+    ``replay_buffer_size`` 262144 (A2C's ring); each save writes the
+    agent's four components. ``EVOMOTION_PROFILE=1``
     times each iteration and its rollout and update phases (``StepTimer``,
     waiting for the card) and prints them at each save with env-steps/s
     including the update; ``EVOMOTION_TRACE_DIR=<dir>`` writes one
@@ -122,9 +131,11 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
         raise NotImplementedError(
             f"batched training of {agent_name!r} is not ported yet (ROADMAP A7)")
     offpolicy = agent_name in ("soft_actor_critic", "cross_q")
-    if not offpolicy and agent_name not in ("ppo_gae", "ppo"):
-        raise SystemExit(f"batched training supports ppo_gae/soft_actor_critic/cross_q (and, "
-                         f"later, {'/'.join(_BATCHED_LATER)}), not {agent_name}")
+    step_buffer = agent_name in ("actor_critic", "ppo_vanilla")
+    if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo")):
+        raise SystemExit(f"batched training supports ppo_gae/actor_critic/ppo_vanilla/"
+                         f"soft_actor_critic/cross_q (and, later, {'/'.join(_BATCHED_LATER)}),"
+                         f" not {agent_name}")
     dev = resolve(device)
     # mt_parity off: the envs draw their resets from the trainer's generator
     # (a shared mt19937 table would tilt every env identically)
@@ -153,6 +164,31 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
 
         def critic_loss(m):
             return m.critic_1_loss
+
+        save = trainer.save
+    elif step_buffer:
+        cfg = StepTrainerConfig(
+            hidden_size=g("hidden_size", 256),
+            batch_size=g("batch_size", 256),
+            learning_rate=g("learning_rate", 1e-3),
+            gamma=g("gamma", 0.99),
+            entropy_start_factor=g("entropy_start_factor", 0.01),
+            entropy_end_factor=g("entropy_end_factor", 1e-4),
+            entropy_steps=g("entropy_steps", 100000),
+            epsilon=g("epsilon", 0.2),
+            entropy_factor=g("entropy_factor", 0.01),
+            critic_loss_factor=g("critic_loss_factor", 0.5),
+            epoch=g("epoch", 8),
+            train_every=g("train_every", 1),
+            steps_per_iter=g("horizon", 64),
+            n_envs=num_envs,
+            buffer_capacity=g("replay_buffer_size", 262144),
+        )
+        trainer = BatchedStepTrainer(env, agent_name, cfg, seed=g("seed", env_seed))
+        horizon = cfg.steps_per_iter
+
+        def critic_loss(m):
+            return m.critic_loss
 
         save = trainer.save
     else:

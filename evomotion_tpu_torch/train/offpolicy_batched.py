@@ -81,6 +81,40 @@ class Ring(NamedTuple):
     cursor: int  # next write slot
     filled: int  # entries ever written (capped at CAP)
 
+    @classmethod
+    def empty(cls, capacity: int, obs_size: int, action_size: int, device) -> "Ring":
+        def z(*shape):
+            return torch.zeros((capacity, *shape), device=device)
+
+        return cls(obs=z(obs_size), action=z(action_size), reward=z(), done=z(),
+                   next_obs=z(obs_size), valid=z(), cursor=0, filled=0)
+
+    def write(self, block) -> "Ring":
+        """Writes ``block`` = (obs, action, reward, done, next_obs, valid),
+        each [K, ...], at the cursor (in place; the capacity is a whole
+        number of such blocks) and returns the ring with its cursor and
+        fill advanced."""
+        cap, k = self.obs.shape[0], block[0].shape[0]
+        for dst, src in zip(self[:6], block):
+            dst[self.cursor:self.cursor + k] = src
+        return self._replace(cursor=(self.cursor + k) % cap, filled=min(self.filled + k, cap))
+
+    def cdf(self):
+        """The cumulative sampling weights, the valid entries with the newest
+        written slot excluded (replay_buffer.cpp:50-52), and their total."""
+        weights = self.valid.clone()
+        weights[(self.cursor - 1) % self.obs.shape[0]] = 0.0
+        cdf = torch.cumsum(weights, 0)
+        return cdf, cdf[-1]
+
+    def sample(self, cdf, total, u):
+        """The ring indices that the uniforms ``u`` [B] pick by inverse CDF
+        (``cdf`` the cumulative sampling weights, ``total`` their sum) and
+        the batch (obs, action, reward [B, 1], done [B, 1], next_obs) there."""
+        idx = torch.searchsorted(cdf, u * total)
+        return idx, (self.obs[idx], self.action[idx], self.reward[idx][:, None],
+                     self.done[idx][:, None], self.next_obs[idx])
+
 
 @dataclasses.dataclass
 class OffPolicyTrainState:
@@ -133,6 +167,37 @@ def guarded_update(agent, batch, u_next, u_curr) -> torch.Tensor:
     return torch.zeros_like(losses)
 
 
+def rollout(env, actor, state, n_steps: int, uniforms=None):
+    """``n_steps`` env steps of ``actor``'s sampled policy (``uniforms``
+    [T, N, A] in place of the generator's action draws) from a train state
+    with ``env_state``, ``obs``, ``prev_valid``, ``ep_steps`` and
+    ``generator``, which it advances in place. Returns the trajectory
+    ``(obs, action, reward, done, next_obs, trainable, done_len, win)``,
+    each [T, N, ...]: a transition is trainable iff its input observation
+    and its result are both valid episode frames."""
+    gen = state.generator
+    env_state, obs, prev_valid, ep_steps = (state.env_state, state.obs, state.prev_valid,
+                                            state.ep_steps)
+    steps = []
+    with torch.no_grad():
+        for t in range(n_steps):
+            mu, sigma = actor(obs)
+            u = None if uniforms is None else uniforms[t]
+            action = D.truncated_normal_sample(mu, sigma, gen, u)
+            env_state, res = env.step(env_state, action, gen)
+            trainable = prev_valid & res.valid
+            grown = ep_steps + res.valid.to(torch.int32)
+            ended = res.done & res.valid
+            done_len = torch.where(ended, grown, 0)
+            ep_steps = torch.where(ended, 0, grown)
+            steps.append((obs, action, res.reward, res.done, res.obs, trainable.float(),
+                           done_len, res.win & ended))
+            obs, prev_valid = res.obs, res.valid
+    state.env_state, state.obs, state.prev_valid, state.ep_steps = (
+        env_state, obs, prev_valid, ep_steps)
+    return tuple(torch.stack(x) for x in zip(*steps))
+
+
 class BatchedOffPolicy:
     """algo: ``"soft_actor_critic"`` or ``"cross_q"``; ``env`` a batched env
     (``reset(n_envs, generator)``, ``step(state, action, generator)``,
@@ -173,17 +238,7 @@ class BatchedOffPolicy:
         dev = self.env.device
         gen = torch.Generator(device=dev).manual_seed(self.seed)
         env_state, first = self.env.reset(cfg.n_envs, gen)
-        s, a, cap = self.env.observation_size, self.env.action_size, self.capacity
-        ring = Ring(
-            obs=torch.zeros((cap, s), device=dev),
-            action=torch.zeros((cap, a), device=dev),
-            reward=torch.zeros(cap, device=dev),
-            done=torch.zeros(cap, device=dev),
-            next_obs=torch.zeros((cap, s), device=dev),
-            valid=torch.zeros(cap, device=dev),
-            cursor=0,
-            filled=0,
-        )
+        ring = Ring.empty(self.capacity, self.env.observation_size, self.env.action_size, dev)
         return OffPolicyTrainState(
             agent=self.make_agent(), ring=ring, env_state=env_state, obs=first.obs,
             prev_valid=first.valid.clone(), generator=gen, iteration=0,
@@ -192,32 +247,8 @@ class BatchedOffPolicy:
     # -- one iteration --------------------------------------------------------
 
     def rollout(self, state: OffPolicyTrainState, uniforms=None):
-        """``steps_per_iter`` env steps of the sampled policy (``uniforms``
-        [T, N, A] in place of the generator's action draws); advances the
-        state's envs, obs, validity and episode steps in place and returns
-        the trajectory ``(obs, action, reward, done, next_obs, trainable,
-        done_len, win)``, each [T, N, ...]."""
-        env, actor, gen = self.env, state.agent.actor, state.generator
-        env_state, obs, prev_valid, ep_steps = (state.env_state, state.obs, state.prev_valid,
-                                                state.ep_steps)
-        steps = []
-        with torch.no_grad():
-            for t in range(self.config.steps_per_iter):
-                mu, sigma = actor(obs)
-                u = None if uniforms is None else uniforms[t]
-                action = D.truncated_normal_sample(mu, sigma, gen, u)
-                env_state, res = env.step(env_state, action, gen)
-                trainable = prev_valid & res.valid
-                grown = ep_steps + res.valid.to(torch.int32)
-                ended = res.done & res.valid
-                done_len = torch.where(ended, grown, 0)
-                ep_steps = torch.where(ended, 0, grown)
-                steps.append((obs, action, res.reward, res.done, res.obs, trainable.float(),
-                              done_len, res.win & ended))
-                obs, prev_valid = res.obs, res.valid
-        state.env_state, state.obs, state.prev_valid, state.ep_steps = (
-            env_state, obs, prev_valid, ep_steps)
-        return tuple(torch.stack(x) for x in zip(*steps))
+        """:func:`rollout` of ``steps_per_iter`` steps with the agent's actor."""
+        return rollout(self.env, state.agent.actor, state, self.config.steps_per_iter, uniforms)
 
     def train_step_fn(self, learn: bool = True, timer=None):
         """``train_step(state, uniforms=None) -> (state, OffPolicyMetrics)``:
@@ -238,7 +269,6 @@ class BatchedOffPolicy:
         a device copy of the agent, and deciding whether to restore it is
         one host read per update."""
         cfg = self.config
-        cap = self.capacity
         block = cfg.steps_per_iter * cfg.n_envs
         n_updates = self.updates_per_iter * cfg.epoch
         dev = self.env.device
@@ -254,24 +284,14 @@ class BatchedOffPolicy:
                 t_obs, t_act, t_rew, t_done, t_next, t_valid = (
                     x.reshape((block,) + x.shape[2:]) for x in traj[:6])
                 done_lens, wins = traj[6], traj[7]
-                ring = state.ring
-                cur = ring.cursor
-                for dst, src in zip(ring[:6], (t_obs, t_act, t_rew, t_done.float(), t_next,
-                                               t_valid)):
-                    dst[cur:cur + block] = src
-                ring = state.ring = ring._replace(cursor=(cur + block) % cap,
-                                                  filled=min(ring.filled + block, cap))
+                ring = state.ring = state.ring.write(
+                    (t_obs, t_act, t_rew, t_done.float(), t_next, t_valid))
 
             losses = torch.zeros((n_updates, 4), device=dev)
             has_enough = False
             with phase("update"):
                 if learn:
-                    # sampling weights: valid entries, the newest written
-                    # slot excluded (replay_buffer.cpp:50-52)
-                    weights = ring.valid.clone()
-                    weights[(ring.cursor - 1) % cap] = 0.0
-                    cdf = torch.cumsum(weights, 0)
-                    total = cdf[-1]
+                    cdf, total = ring.cdf()
                     has_enough = bool(total >= cfg.batch_size)  # one host read
                 if has_enough:
                     losses = self._updates(state.agent, ring, cdf, total, uniforms,
@@ -313,12 +333,8 @@ class BatchedOffPolicy:
 
     @staticmethod
     def sample(ring: Ring, cdf, total, u):
-        """The ring indices that the uniforms ``u`` [B] pick by inverse CDF
-        (``cdf`` the cumulative sampling weights, ``total`` their sum) and
-        the batch (obs, action, reward [B, 1], done [B, 1], next_obs) there."""
-        idx = torch.searchsorted(cdf, u * total)
-        return idx, (ring.obs[idx], ring.action[idx], ring.reward[idx][:, None],
-                     ring.done[idx][:, None], ring.next_obs[idx])
+        """``ring.sample``: the indices ``u`` picks and the batch there."""
+        return ring.sample(cdf, total, u)
 
     # -- checkpoints (the sequential agent's per-component layout) --------------
 

@@ -7,8 +7,10 @@ over the port's env. The parser surface and the strict agent parameters
 follow the JAX package's CLI.
 """
 
+import math
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,10 +64,10 @@ def test_missing_agent_parameter_raises(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["cli", "robot_jump", "random", "run", "x"],
-    ["cli", "cartpole", "ppo_gae", "run", "x"],
-    ["cli", "cartpole", "actor_critic", "run", "x"],
-    ["cli", "cartpole", "ppo_gae", "train", "x"],
+    ["cli", "robot_jump", "soft_actor_critic_liquid", "run", "x"],
+    ["cli", "cartpole", "ppo_gae_liquid", "run", "x"],
+    ["cli", "cartpole", "actor_critic_liquid", "run", "x"],
+    ["cli", "cartpole", "actor_critic_liquid", "train", "x"],
     ["cli", "cartpole", "random", "run", "x", "--record", "t.npz"],
     ["cli", "cartpole", "random", "run", "x", "--live"],
     ["gui"],
@@ -99,3 +101,56 @@ def test_env_parameters_reach_the_env(tmp_path, capsys):
               "--env_parameters", "mas_steps=2", "run", str(tmp_path)], device="cpu")
     m = LINE.match(capsys.readouterr().out.splitlines()[-1])
     assert m and int(m.group(2)) == 3
+
+
+SEQ_PARAMS = {
+    "actor_critic": ["hidden_size=8", "batch_size=4", "lr=1e-3", "gamma=0.99",
+                     "entropy_start_factor=0.01", "entropy_end_factor=0.001",
+                     "entropy_steps=100", "replay_buffer_size=64", "train_every=2"],
+    "ppo_vanilla": ["hidden_size=8", "gamma=0.99", "epsilon=0.2", "entropy_factor=0.01",
+                    "critic_loss_factor=0.5", "epoch=1", "batch_size=4",
+                    "learning_rate=1e-3"],
+    "ppo_gae": ["hidden_size=8", "gamma=0.99", "lambda=0.95", "epsilon=0.2",
+                "entropy_factor=0.01", "critic_loss_factor=0.5", "epoch=1", "batch_size=2",
+                "train_every=2", "replay_buffer_size=8", "learning_rate=1e-3",
+                "clip_grad_norm=0.5"],
+}
+
+
+@pytest.mark.parametrize("agent", sorted(SEQ_PARAMS))
+def test_cli_train_then_run(agent, tmp_path, capsys):
+    """The sequential tier (``--num_envs 1``) as tests/test_cli.py drives the
+    JAX CLI: two episodes of training, a save, then ``run`` of the save."""
+    base = ["cli", "cartpole", agent, "--agent_parameters", "seed=1", *SEQ_PARAMS[agent],
+            "--env_parameters", "mas_steps=30", "reset_frame_nb=2"]
+    out = tmp_path / "out"
+    assert cli.main(base + ["train", str(out), "-e", "2", "-n", "1"], device="cpu") == 0
+    assert sorted(p.name for p in (out / "save_0").iterdir()) == [
+        "actor.npz", "actor_optimizer.npz", "critic.npz", "critic_optimizer.npz"]
+    meters = re.findall(r"(\w+) = (\S+)", capsys.readouterr().out.replace("\r", "\n"))
+    assert meters and all(math.isfinite(float(v)) for _, v in meters)
+    assert cli.main(base + ["run", str(out / "save_0"), "--episodes", "1"], device="cpu") == 0
+    lines = [m for m in map(LINE.match, capsys.readouterr().out.splitlines()) if m]
+    assert len(lines) == 1 and int(lines[0].group(2)) > 0
+
+
+@pytest.mark.parametrize("agent", ["actor_critic", "ppo_vanilla"])
+def test_cli_batched_train_then_sequential_run(agent, tmp_path, capsys):
+    """``--num_envs 2 train`` of the step-buffer tier (batched cartpole),
+    whose ``save_0`` the sequential agent then runs."""
+    out = tmp_path / "out"
+    argv = ["cli", "cartpole", agent, "--num_envs", "2", "--agent_parameters",
+            "hidden_size=8", "horizon=4", "batch_size=4", "epoch=2", "--env_parameters",
+            "reset_frame_nb=2"]
+    assert cli.main(argv + ["train", str(out), "-e", "2", "-n", "1"], device="cpu") == 0
+    m = re.findall(r"save 0 actor=(\S+) critic=(\S+) r/step=(\S+) ([\d,]+) env-steps/s "
+                   r"\[(\d)/2\]", capsys.readouterr().out)
+    assert [x[-1] for x in m] == ["1", "2"] and all(math.isfinite(float(x[1])) for x in m)
+    with np.load(out / "save_0" / "actor_optimizer.npz") as f:
+        # A2C: 4 events per iteration (the ring holds a batch from the first);
+        # PPO-vanilla: 2 epochs per iteration
+        assert int(f["0/count"]) == {"actor_critic": 8, "ppo_vanilla": 4}[agent]
+    run = ["cli", "cartpole", agent, "--agent_parameters", "seed=1",
+           *SEQ_PARAMS[agent], "run", str(out / "save_0")]
+    assert cli.main(run, device="cpu") == 0
+    assert LINE.match(capsys.readouterr().out.splitlines()[-1])

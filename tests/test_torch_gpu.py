@@ -702,3 +702,60 @@ def test_cli_batched_train_on_card(tmp_path):
         assert int(f["1/0/count"]) == 8
     with np.load(tmp_path / "save_1" / "actor.npz") as f:
         assert all(np.isfinite(f[k]).all() for k in f)
+
+
+@pytest.mark.gpu
+def test_robot_jump_step_on_card_matches_cpu():
+    """One batched robot_jump physics step of 4 envs (kernel #1, f32 rows)
+    from a seeded reset against the same step on the CPU (the slim sweep's
+    plain version) within chip_smoke's STEP_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.robot import RobotJump
+
+    env = RobotJump(device="cuda")
+    env.model = dataclasses.replace(env.model, row_dtype="f32")
+    host = RobotJump(device="cpu")
+    host.model = env.model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = env.reset(4, gen)
+    tgt = (torch.rand((4, env.action_size), generator=gen, device="cuda") * 2 - 1) * env._speed
+    on = torch.ones((4, env.model.n_slider), dtype=torch.bool, device="cuda")
+    card, _ = env.physics_step(state.physics, tgt, on)
+    ref, _ = host.physics_step(type(state.physics)(*(x.cpu() for x in state.physics)),
+                               tgt.cpu(), on.cpu())
+    err = max(float((getattr(card, f).cpu() - getattr(ref, f)).abs().max())
+              for f in ("pos", "quat", "lin_vel", "ang_vel"))
+    assert err <= chip_smoke.STEP_TOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["actor_critic", "ppo_vanilla"])
+def test_onpolicy_update_on_card_matches_cpu(algo):
+    """An A2C and a PPO-vanilla update (hidden 64, batch 64, 4 epochs) on the
+    card against the CPU from one shared state (the CPU's after a first
+    update): the losses and every tensor of the carry within chip_smoke's
+    UPDATE_TOL (a first update from the fresh init is held in chip_smoke's
+    phase 21: ROADMAP Queue C trap 11)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    s, a, sizes = 371, 12, {"actor_critic": 64, "ppo_vanilla": 64}
+    agents = [chip_smoke._onpolicy_agent(algo, 0, s, a, 64, 64, 4, d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(0)
+    batches = [chip_smoke._onpolicy_batch(algo, rng, s, a, sizes, agents[1]) for _ in range(2)]
+
+    def update(ag, batch):
+        batch = [x.to(ag.device) for x in batch]
+        return ag.update(batch, 0.01) if algo == "actor_critic" else ag.update(batch)
+
+    update(agents[1], batches[0])
+    agents[0].load_carry_tree(agents[1].carry_tree())
+    losses = [update(ag, batches[1]).cpu() for ag in agents]
+    assert float((losses[0] - losses[1]).abs().max()) <= chip_smoke.UPDATE_TOL
+    got, ref = _flatten(agents[0].carry_tree()), _flatten(agents[1].carry_tree())
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=chip_smoke.UPDATE_TOL,
+                                   err_msg=k)

@@ -39,6 +39,14 @@ assert {"evomotion_tpu_torch.tools.prof_kernel",
         "evomotion_tpu_torch.buffers.replay",
         "evomotion_tpu_torch.agents.soft_actor_critic",
         "evomotion_tpu_torch.agents.cross_q",
+        "evomotion_tpu_torch.agents.actor_critic",
+        "evomotion_tpu_torch.agents.ppo_vanilla",
+        "evomotion_tpu_torch.agents.ppo_gae",
+        "evomotion_tpu_torch.agents.factory",
+        "evomotion_tpu_torch.envs.robot",
+        "evomotion_tpu_torch.envs.registry",
+        "evomotion_tpu_torch.train.onpolicy_step_batched",
+        "evomotion_tpu_torch.train.driver",
         "evomotion_tpu_torch.tools.train_offpolicy_cartpole",
         "evomotion_tpu_torch.tools.train_walk_offpolicy"} <= set(names), names
 """

@@ -180,11 +180,49 @@ def test_cli_train_num_envs_saves_loadable_components(small, capsys, tmp_path):
     assert int(st[1][0].count) == 2  # one epoch per iteration, two iterations
 
 
-@pytest.mark.parametrize("agent,item", [("soft_actor_critic_liquid", "A7"),
-                                        ("ppo_vanilla", "A7"), ("actor_critic", "A7")])
-def test_cli_train_unported_batched_agents_raise(agent, item, tmp_path):
+def test_cli_batched_ppo_save_runs_on_the_sequential_agent(small, capsys, tmp_path):
+    """A ``save_0`` of ``train --num_envs 2`` (batched PPO-GAE) loads into the
+    sequential ``ppo_gae`` agent: ``run`` of it on one world (per-env step,
+    a 3-step bank) prints its episode with the trained actor's weights."""
+    out = str(tmp_path)
+    assert cli.main(["cli", "robot_walk", "ppo_gae", "--num_envs", "2", "--agent_parameters",
+                     "hidden_size=16", "horizon=2", "epoch=1", "train", out, "-e", "1", "-n",
+                     "1"], device="cpu") == 0
+    capsys.readouterr()
+    loaded = []
+    from evomotion_tpu_torch.agents.ppo_gae import PpoGaeAgent
+
+    own = PpoGaeAgent.load
+
+    def load(self, folder):
+        own(self, folder)
+        loaded.append(self)
+
+    PpoGaeAgent.load = load
+    try:
+        rc = cli.main(["cli", "robot_walk", "ppo_gae", "--agent_parameters", "seed=3",
+                       "hidden_size=16", "gamma=0.99", "lambda=0.95", "epsilon=0.2",
+                       "entropy_factor=0.01", "critic_loss_factor=0.5", "epoch=1",
+                       "batch_size=2", "train_every=1", "replay_buffer_size=4",
+                       "learning_rate=1e-3", "clip_grad_norm=0.5", "--env_parameters",
+                       "initial_remaining_seconds=0.05", "run", os.path.join(out, "save_0")],
+                      device="cpu")
+    finally:
+        PpoGaeAgent.load = own
+    assert rc == 0
+    assert re.match(r"^episode 0: \d+ steps, return \S+$", capsys.readouterr().out.splitlines()[-1])
+    actor = load_component(os.path.join(out, "save_0"), "actor", Actor(S, A, 16))
+    for a, b in zip(loaded[0].actor.parameters(), actor.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("env,agent,item", [
+    ("robot_walk", "soft_actor_critic_liquid", "A7"), ("robot_walk", "ppo_gae_liquid", "A7"),
+    ("cartpole", "ppo_gae_liquid", "A7")],
+    ids=["soft_actor_critic_liquid-A7", "ppo_vanilla-A7", "actor_critic-A7"])
+def test_cli_train_unported_batched_agents_raise(env, agent, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["cli", "robot_walk", agent, "--num_envs", "2", "train", str(tmp_path)],
+        cli.main(["cli", env, agent, "--num_envs", "2", "train", str(tmp_path)],
                  device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.main(["cli", "robot_walk", "ppo_gae", "train", str(tmp_path)], device="cpu")
+        cli.main(["cli", env, "actor_critic_liquid", "train", str(tmp_path)], device="cpu")
