@@ -17,8 +17,10 @@ SAC ``train`` (the slim sweep) and their sequential ``train`` then ``run``
 on cartpole (the fat-row sweep); the on-policy tier: batched A2C and
 PPO-vanilla ``train`` (the slim sweep), the batched ``robot_jump`` rollout
 (the slim sweep) and its sequential ``run``, and the sequential A2C,
-PPO-vanilla and PPO-GAE ``train`` then ``run`` (the fat-row sweep).
-Phases, each printed with its seconds:
+PPO-vanilla and PPO-GAE ``train`` then ``run`` (the fat-row sweep); the
+liquid (LTC) tier: batched liquid PPO-GAE and liquid SAC ``train`` (the
+slim sweep) and the sequential ``train`` then ``run`` of the three liquid
+agents (the fat-row sweep). Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
@@ -91,7 +93,7 @@ Phases, each printed with its seconds:
     and ``EVOMOTION_PROFILE=1``: finite losses, moved params, ``save_0``
     loading back equal; rollout and update ms per iteration and env-steps/s
     printed; the slim sweep counted as in 14, and its kernel on the run's
-    first call against its plain version within TOL; then a 200-step
+    first call against its plain version within TOL; then a 100-step
     greedy eval of the saved actor at 16 envs;
 16. offpolicy update check: CrossQ and SAC updates at the walker config's
     widths (obs 371, action 12, actor 256, critics 1,024, batch 256) on the
@@ -103,15 +105,15 @@ Phases, each printed with its seconds:
     moments and counts, BatchRenorm statistics, target critics, log_alpha);
     the card's ms, device launches and device time per update;
 17. cross_q train: ``cli.main([... "robot_walk", "cross_q", "--num_envs",
-    "256", ... "train", ...])`` for 3 iterations with the JAX tier's walker
+    "256", ... "train", ...])`` for 2 iterations with the JAX tier's walker
     config (``runs/walk_r4_crossq_s1234/config.json``: 64 steps per
     iteration, actor 256, BatchRenorm critics 1,024, batch 256, 4 updates
     per env step, a 2^20 ring, the nan guard) and ``EVOMOTION_PROFILE=1``:
-    finite losses, the ring filled with 3 x 16,384 transitions, moved actor
+    finite losses, the ring filled with 2 x 16,384 transitions, moved actor
     tensors, ``save_0`` loading back equal into a fresh agent on the card;
     rollout and update ms per iteration, env-steps/s and gradient steps/s
     printed; the slim sweep counted as in 15 and held against its plain
-    version on the run's first call; then a 200-step greedy eval of the
+    version on the run's first call; then a 100-step greedy eval of the
     saved actor at 16 envs through ``tools.eval_walk``'s ``crossq`` tier;
 18. soft_actor_critic train: the same with SAC (no eval);
 19. offpolicy sequential: ``cli cartpole soft_actor_critic ... train -e 2
@@ -124,8 +126,8 @@ Phases, each printed with its seconds:
     B=256 stepped twice, by default and under
     ``torch.use_deterministic_algorithms(True)`` (largest difference,
     bit-equal or not, the op it raises on); then the full-state resume of
-    one CrossQ iteration (walker widths, ring cut to 4 blocks) in the
-    deterministic mode where it made the step bit-equal: the loaded state
+    one CrossQ iteration (walker widths, 16 steps, ring cut to 4 blocks)
+    in the deterministic mode where it made the step bit-equal: the loaded state
     equal to the saved one, and one more iteration from each within
     UPDATE_TOL;
 21. onpolicy update check: an update of A2C (batch 256), PPO-vanilla (a
@@ -155,8 +157,34 @@ Phases, each printed with its seconds:
     robot_walk ppo_gae ... run`` of phase 15's batched ``save_0``: the
     fat-row sweep once per cartpole and twice per spider physics step,
     each command's first call against its plain version;
-25. the off-policy and on-policy readings lines, the kernels line and the
-    last line (one JSON object each).
+25. liquid update check: an update of the liquid A2C and SAC (batch 256,
+    stored hidden states) and the liquid PPO-GAE (8 padded trajectories of
+    up to 1,800 steps, 8 epochs) at full width (64 neurons, 6 unfoldings,
+    obs 371, action 12) on the card and on the CPU from one seeded init
+    and the same numpy-made inputs (SAC's uniforms too): update 1's losses
+    within UPDATE_TOL and its parameters' error printed beside 2 lr per
+    epoch; update 2 from one shared state, the losses and the parameters
+    within UPDATE_TOL (A2C's and SAC's whole carry); ms, device launches
+    and device ms per update;
+26. ppo_gae_liquid train: ``cli.main([... "robot_walk", "ppo_gae_liquid",
+    "--num_envs", "2048", ... "train", ... "-e", "2", "-n", "1"])`` with
+    the JAX driver's liquid defaults (64 neurons, 6 unfoldings, horizon
+    64, 8 epochs) and ``EVOMOTION_PROFILE=1``: the slim sweep launched 60
+    + 2 x 64 = 188 times and held as in 15, finite losses, moved actor
+    tensors, ``save_0`` loading back equal on the card; rollout and update
+    ms per iteration and env-steps/s printed;
+27. soft_actor_critic_liquid train: the same at 256 envs, batch 256, an
+    update per env step and a 65,536-entry ring: ``updates_done`` 64 per
+    iteration, the ring's fill and bytes, env-steps/s and gradient steps/s;
+28. liquid sequential: ``cli cartpole <liquid agent> ... train -e 2 -n 1``
+    then ``run`` of ``save_0`` for the three agents; ``cli robot_walk
+    ppo_gae_liquid ... run`` of phase 26's batched ``save_0``; ``run`` of
+    the port's copy of the JAX package's liquid-SAC cartpole checkpoint
+    (3 episodes, their lengths beside phase 11's random agent's): the
+    fat-row sweep once per cartpole and twice per spider physics step,
+    each command's first call against its plain version;
+29. the off-policy, on-policy and liquid readings lines, the kernels line
+    and the last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -552,7 +580,7 @@ def sequential_run(args, dev, cpu, card, cap, fat_cap):
         return run_once(self, *a)
 
     perenv.PerEnvStep._run = counted
-    total, errs = 0, {}
+    total, errs, lengths = 0, {}, {}
     try:
         for env_name, episodes in SEQ_EPISODES.items():
             argv = ["cli", env_name, "random", "--env_seed", str(args.seed)]
@@ -595,6 +623,7 @@ def sequential_run(args, dev, cpu, card, cap, fat_cap):
                   f"{wall / n_phys * 1e3:.2f} ms per physics step (host clock, "
                   f"{n_phys} physics steps incl. reset settling) [{card}]", flush=True)
             total += launches
+            lengths[env_name] = [int(m.group(2)) for m in lines]
             if fat_cap.captured:
                 inp, fat_cap.captured = fat_cap.inputs, []
                 _, errs[env_name], _ = fat_check(
@@ -605,7 +634,7 @@ def sequential_run(args, dev, cpu, card, cap, fat_cap):
     if set(errs) != {"cartpole", "cartpole3d"}:
         fail(f"no fat sweep call captured from a cartpole run: {sorted(errs)}")
     done("sequential run path", t0)
-    return {"launches": total, "errs": errs}
+    return {"launches": total, "errs": errs, "lengths": lengths}
 
 
 def slim_check(inp, out, n_cmp, label):
@@ -1186,7 +1215,7 @@ def ppo_train(args, dev, cpu, card, cap, keep):
     are set to 0 just before and read just after: one launch per physics
     step; the first call's inputs are kept and, after the run, go through
     the kernel and its plain version, which must agree within TOL. Then a
-    200-step greedy eval of the saved actor at 16 envs. ``save_0`` is
+    100-step greedy eval of the saved actor at 16 envs. ``save_0`` is
     copied to ``keep`` (phase 24 runs it on the sequential agent)."""
     import shutil
     import tempfile
@@ -1251,7 +1280,7 @@ def ppo_train(args, dev, cpu, card, cap, keep):
               f"the card, Adam count {iters * epoch}", flush=True)
         shutil.copytree(save, keep, dirs_exist_ok=True)
 
-        n_smoke, h_smoke = (2, 3) if cpu else (16, 200)
+        n_smoke, h_smoke = (2, 3) if cpu else (OFF_EVAL_ENVS, OFF_EVAL_STEPS)
         r = ew.greedy_eval(env, ew.GreedyPolicy(actor).eval(), n_smoke, h_smoke,
                            torch.Generator(device=dev).manual_seed(args.seed))
     steps = r.steps.float()
@@ -1272,10 +1301,13 @@ UPDATE_TOL = 1e-4
 # the off-policy walker config, runs/walk_r4_crossq_s1234/config.json (the
 # defaults of tools/train_walk_offpolicy.py): 256 envs x 64 steps, actor 256,
 # BatchRenorm critics 1,024, batch 256, 4 updates per env step, a 2^20 ring,
-# the nan guard on. Only the iteration count is cut: 3 against 12,000.
+# the nan guard on. Only the iteration count is cut: 2 against 12,000.
 OFF_ENVS, OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH, OFF_RING = 256, 256, 1024, 256, 4, 1 << 20
-OFF_ITERS = 3
-OFF_EVAL_ENVS, OFF_EVAL_STEPS = 16, 200
+OFF_ITERS = 2
+# the smoke evals of a trained actor (phases 15 and 17)
+OFF_EVAL_ENVS, OFF_EVAL_STEPS = 16, 100
+# the C2 resume's iteration length: a quarter of the walker config's 64
+C2_HORIZON = 16
 # agent parameters of the sequential cartpole train (strict keys, no
 # defaults); episodes capped at 300 steps
 SEQ_TRAIN_PARAMS = ["actor_hidden_size=64", "critic_hidden_size=64", "batch_size=64", "epoch=1",
@@ -1397,16 +1429,31 @@ def offpolicy_update_check(args, dev, cpu, card):
     return out
 
 
+def _saved_equal(label, agent, save):
+    """``save``'s components, loaded into ``agent``, come back equal."""
+    import numpy as np
+
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    agent.load(save)
+    for c in agent.SAVE:
+        with np.load(os.path.join(save, f"{c}.npz")) as raw:
+            got = _flatten(agent.tree(c))
+            if got.keys() != set(raw.keys()) or not all(
+                    np.array_equal(got[k], raw[k]) for k in got):
+                fail(f"{label}: save_0 {c} did not load back equal")
+
+
 def offpolicy_train(args, dev, cpu, card, cap, algo):
     """Phases 17-18, the CLI's batched off-policy ``train``: ``cli.main(["cli",
-    "robot_walk", algo, "--num_envs", "256", ..., "train", out, "-e", "3",
+    "robot_walk", algo, "--num_envs", "256", ..., "train", out, "-e", "2",
     "-n", "1"])`` with the walker config (OFF_*) and ``EVOMOTION_PROFILE=1``.
-    The losses must be finite, the ring must hold 3 x 16,384 transitions,
+    The losses must be finite, the ring must hold 2 x 16,384 transitions,
     every actor tensor must have moved from its seeded init, and ``save_0``
     must load back equal into a fresh agent on the card. The slim sweep's
     counts are set to 0 just before and read just after: one launch per
     physics step; the first call's inputs go through the kernel and its
-    plain version after the run. For CrossQ, a 200-step greedy eval of the
+    plain version after the run. For CrossQ, a 100-step greedy eval of the
     saved actor at 16 envs through ``tools.eval_walk``'s ``crossq`` tier."""
     import tempfile
 
@@ -1417,7 +1464,6 @@ def offpolicy_train(args, dev, cpu, card, cap, algo):
     from evomotion_tpu_torch.networks.modules import Actor
     from evomotion_tpu_torch.tools import eval_walk as ew
     from evomotion_tpu_torch.train import offpolicy_batched as ob
-    from evomotion_tpu_torch.train.checkpoint import _flatten
 
     label = f"{algo} train"
     t0 = phase(label)
@@ -1465,7 +1511,7 @@ def offpolicy_train(args, dev, cpu, card, cap, algo):
         s, a = env.observation_size, env.action_size
         start = Actor(s, a, actor, torch.Generator().manual_seed(args.seed))
         agent = _offpolicy_agent(algo, 123, s, a, actor, critic, batch, dev)
-        agent.load(save)
+        _saved_equal(label, agent, save)
         moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
                  for (n, p), q in zip(agent.actor.named_parameters(), start.parameters())}
         if not all(x > 0 and math.isfinite(x) for x in moved.values()):
@@ -1473,12 +1519,6 @@ def offpolicy_train(args, dev, cpu, card, cap, algo):
         print(f"{label}: actor params moved from their init by max |diff| "
               f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}",
               flush=True)
-        for c in agent.SAVE:
-            with np.load(os.path.join(save, f"{c}.npz")) as raw:
-                got = _flatten(agent.tree(c))
-                if got.keys() != set(raw.keys()) or not all(
-                        np.array_equal(got[k], raw[k]) for k in got):
-                    fail(f"{label}: save_0 {c} did not load back equal")
         count = int(np.load(os.path.join(save, "actor_optimizer.npz"))["0/count"])
         print(f"{label}: save_0 ({len(agent.SAVE)} components) loads back equal on the card, "
               f"Adam count {count}", flush=True)
@@ -1569,8 +1609,9 @@ def c2_reading(args, dev, cpu, card):
     reproducible? One seeded batched state at B=256 stepped twice with the
     same action, by default and under torch.use_deterministic_algorithms
     (the op it raises on, if any); then the full-state resume of one CrossQ
-    iteration at the walker widths (ring cut to 4 blocks), in the
-    deterministic mode where that mode made the step bit-equal (by default,
+    iteration at the walker widths (16 steps per iteration, ring cut to 4
+    blocks), in the deterministic mode where that mode made the step
+    bit-equal (by default,
     the spider's chaos carries the step's rounding to O(10) differences over
     an iteration): the state loaded by ``load_full`` must equal the saved
     one, and one iteration from each must agree within UPDATE_TOL."""
@@ -1608,7 +1649,7 @@ def c2_reading(args, dev, cpu, card):
                   f"{out[mode]} [{card}]", flush=True)
         del state
 
-        horizon = 2 if cpu else 64
+        horizon = 2 if cpu else C2_HORIZON
         actor, critic, batch, epoch = (16, 16, 4, 1) if cpu else (
             OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH)
         cfg = OffPolicyConfig(
@@ -1900,7 +1941,9 @@ def seq_command(argv, label, per_step, dev, cpu, card, fat_cap, steps):
             fail(f"{label}: episode line {lines[-1:]}")
     inp, fat_cap.captured = fat_cap.inputs, []
     _, err, _ = fat_check(inp, cpu, f"{label}: first sweep call")
-    return {"physics_steps": n_phys, "launches": launches, "s": wall, "err": err}
+    episodes = [int(m.group(2)) for m in map(EPISODE_LINE.match, lines) if m]
+    return {"physics_steps": n_phys, "launches": launches, "s": wall, "err": err,
+            "episode_steps": episodes}
 
 
 def robot_jump(args, dev, cpu, card, cap, fat_cap):
@@ -1960,7 +2003,6 @@ def onpolicy_train(args, dev, cpu, card, cap, algo):
 
     from evomotion_tpu_torch.envs.robot import RobotWalkFactory
     from evomotion_tpu_torch.networks.modules import Actor
-    from evomotion_tpu_torch.train.checkpoint import _flatten
 
     label = f"{algo} train"
     t0 = phase(label)
@@ -1986,7 +2028,7 @@ def onpolicy_train(args, dev, cpu, card, cap, algo):
         s, a = env.observation_size, env.action_size
         start = Actor(s, a, hidden, torch.Generator().manual_seed(args.seed))
         agent = _onpolicy_agent(algo, 123, s, a, hidden, batch, epoch, dev)
-        agent.load(save)
+        _saved_equal(label, agent, save)
         moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
                  for (n, p), q in zip(agent.actor.named_parameters(), start.parameters())}
         if not all(x > 0 and math.isfinite(x) for x in moved.values()):
@@ -1994,12 +2036,6 @@ def onpolicy_train(args, dev, cpu, card, cap, algo):
         print(f"{label}: actor params moved from their init by max |diff| "
               f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}",
               flush=True)
-        for c in agent.SAVE:
-            with np.load(os.path.join(save, f"{c}.npz")) as raw:
-                got = _flatten(agent.tree(c))
-                if got.keys() != set(raw.keys()) or not all(
-                        np.array_equal(got[k], raw[k]) for k in got):
-                    fail(f"{label}: save_0 {c} did not load back equal")
         count = int(np.load(os.path.join(save, "actor_optimizer.npz"))["0/count"])
         # A2C's events wait for a batch of trainable transitions in the ring:
         # at 2048 envs the first block holds one, in the rehearsal not yet
@@ -2058,6 +2094,361 @@ def onpolicy_sequential(args, dev, cpu, card, fat_cap, ppo_save, ppo_hidden):
             ms[label] = r["s"] / r["physics_steps"] * 1e3
     done("onpolicy sequential", t0)
     return {"launches": total, "err": max(errs), "ms_per_physics_step": ms}
+
+
+# ---- the liquid tier (phases 25-28) -------------------------------------------
+
+# the JAX driver's liquid defaults (evomotion_tpu/train/driver.py:114-118,
+# 260-265): 64 neurons, 6 unfoldings; at the walker's obs 371 and action 12
+LIQ_NEURONS, LIQ_STEPS = 64, 6
+LIQ_ALGOS = ("actor_critic_liquid", "ppo_gae_liquid", "soft_actor_critic_liquid")
+# phase 25: A2C and SAC at batch 256, PPO-GAE on 8 trajectories of up to the
+# 1800-step win horizon (padded to 1,824 as the JAX agent pads them), 8
+# epochs; lr 1e-3 (A2C, PPO-GAE) and 3e-4 (SAC), the driver's
+LIQ_BATCH, LIQ_GAE_TRAJ, LIQ_GAE_MAX_LEN, LIQ_EPOCH = 256, 8, 1800, 8
+LIQ_LR = {"actor_critic_liquid": 1e-3, "ppo_gae_liquid": 1e-3, "soft_actor_critic_liquid": 3e-4}
+# phases 26-27: the CLI's batched liquid PPO-GAE at B=2048 and liquid SAC at
+# B=256 (horizon 64, SAC batch 256 with an update per env step and a
+# 65,536-entry ring), each 2 iterations
+LIQ_PPO_ENVS, LIQ_SAC_ENVS, LIQ_ITERS = 2048, 256, 2
+# phase 28: agent parameters of the sequential cartpole train (strict keys)
+LIQ_SEQ_PARAMS = {
+    "actor_critic_liquid": ["neuron_number=64", "batch_size=64", "lr=1e-3", "gamma=0.99",
+                            "entropy_start_factor=0.01", "entropy_end_factor=0.0001",
+                            "entropy_steps=100000", "unfolding_steps=6",
+                            "replay_buffer_size=100000", "train_every=1"],
+    "ppo_gae_liquid": ["neuron_number=64", "unfolding_steps=6", "gamma=0.99", "lambda=0.95",
+                       "epsilon=0.2", "entropy_factor=0.01", "critic_loss_factor=0.5",
+                       "epoch=8", "batch_size=2", "train_every=1", "replay_buffer_size=64",
+                       "learning_rate=1e-3", "clip_grad_norm=0.5"],
+    "soft_actor_critic_liquid": ["neuron_number=64", "batch_size=64", "epoch=1",
+                                 "learning_rate=1e-3", "gamma=0.99", "tau=0.005",
+                                 "unfolding_steps=6", "replay_buffer_size=100000",
+                                 "train_every=1"],
+}
+# the port's copy of the JAX package's liquid-SAC cartpole checkpoint
+# (tools/train_offpolicy_cartpole.py: 32 neurons, 6 unfoldings); run with
+# train_every beyond the run's steps, so that its agent, which trains inside
+# act as the reference's does, plays the checkpoint's own policy throughout
+LIQ_CARTPOLE_SAVE = os.path.join("evomotion_tpu_torch", "resources", "cartpole_sac_liquid")
+LIQ_CARTPOLE_PARAMS = ["neuron_number=32", "batch_size=128", "epoch=1", "learning_rate=1e-3",
+                       "gamma=0.99", "tau=0.005", "unfolding_steps=6",
+                       "replay_buffer_size=8192", "train_every=1000000"]
+
+
+def _liquid_agent(algo, seed, s, a, neurons, steps, batch, epoch, device):
+    from evomotion_tpu_torch.agents import liquid_agents as la
+
+    lr = LIQ_LR[algo]
+    if algo == "actor_critic_liquid":
+        return la.ActorCriticLiquidAgent(seed, s, a, neurons, batch, lr, 0.99, 0.01, 1e-4,
+                                         100000, steps, 1, 1, device=device)
+    if algo == "ppo_gae_liquid":
+        return la.PpoGaeLiquidAgent(seed, s, a, neurons, steps, 0.99, 0.95, 0.2, 0.01, 0.5,
+                                    epoch, batch, 1, 8, lr, 0.5, device=device)
+    return la.SoftActorCriticLiquidAgent(seed, s, a, neurons, batch, 1, lr, 0.99, 0.005, steps,
+                                         1, 1, device=device)
+
+
+def _liquid_batch(algo, rng, s, a, sizes, agent):
+    """One update's inputs, numpy-made on the CPU, hidden states N(0, 1): a
+    step batch with its stored in and out states {net: [B, n]} (A2C; SAC
+    with its two [B, A] uniforms last), or padded trajectories with their
+    stored states built by the agent's own ``pack`` (PPO-GAE), log-probs
+    near the actor's own."""
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.buffers.replay import LiquidPpoEpisodeStep, PpoEpisodeStep
+    from evomotion_tpu_torch.networks import distributions as D
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    n = agent.neurons
+    if algo != "ppo_gae_liquid":
+        b = sizes[algo]
+        xs = [{k: f32(rng.standard_normal((b, n))) for k in agent.NETS} for _ in range(2)]
+        out = [f32(rng.standard_normal((b, s))), f32(rng.uniform(-1, 1, (b, a))),
+               f32(rng.standard_normal((b, 1))), f32(rng.uniform(size=(b, 1)) < 0.05),
+               f32(rng.standard_normal((b, s))), *xs]
+        if algo == "soft_actor_critic_liquid":
+            out += [f32(rng.uniform(size=(b, a))), f32(rng.uniform(size=(b, a)))]
+        return out
+    n_traj, max_len = sizes[algo]
+    lens = rng.integers(max_len // 2, max_len + 1, n_traj)
+    lens[0] = max_len
+    episodes = []
+    for m in lens:
+        states, actions = f32(rng.standard_normal((m, s))), f32(rng.uniform(-1, 1, (m, a)))
+        ax, cx = f32(rng.standard_normal((m, n))), f32(rng.standard_normal((m, n)))
+        with torch.no_grad():
+            lp = D.truncated_normal_log_pdf(actions, *agent.actor(ax, states)[:2])
+        lp = lp + f32(0.05 * rng.standard_normal((m, a)))
+        v = f32(0.3 * rng.standard_normal((m + 1, 1)))
+        episodes.append([LiquidPpoEpisodeStep(
+            PpoEpisodeStep(states[t], actions[t], float(rng.standard_normal()), t == m - 1, lp[t],
+                           v[t], v[t + 1]), {"actor": ax[t], "critic": cx[t]})
+            for t in range(m)])
+    return list(agent.pack(episodes))
+
+
+def _liquid_update(algo, agent, batch):
+    """One update of ``agent`` on ``batch`` (moved to its device); returns
+    its losses."""
+    dev = agent.device
+    batch = [{k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+             for x in batch]
+    if algo == "actor_critic_liquid":
+        return agent.update(batch, 0.01)
+    if algo == "soft_actor_critic_liquid":
+        return agent.update(batch[:7], *batch[7:])
+    return agent.update(batch)
+
+
+def liquid_update_check(args, dev, cpu, card):
+    """Phase 25: an update of each liquid agent at full width (64 neurons, 6
+    unfoldings, obs 371, action 12; A2C and SAC at batch 256 with their
+    stored hidden states, PPO-GAE on 8 padded trajectories of up to 1800
+    steps, 8 epochs) on N(0, 1) inputs and states, on the card and on the
+    CPU from the same seeded init (SAC with the same uniforms).
+
+    Update 1, from the fresh init: the losses within UPDATE_TOL; the
+    parameters' error printed beside 2 lr per epoch (Adam's first step is
+    the sign of each gradient, and a gradient at f32 noise steps up to lr
+    either way: ROADMAP Queue C trap 11). Update 2, from one state (the
+    CPU's after update 1, loaded into the card's agent) on a second input:
+    the losses and the parameters within UPDATE_TOL, and A2C's and SAC's
+    whole carry (PPO-GAE's Adam moments printed: its clipped surrogate is
+    not smooth, trap 13). Then the card's ms per update (CUDA events), and
+    its device launches and device time per update (``torch.profiler``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from evomotion_tpu_torch.tools._profile import device_events
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    t0 = phase("liquid update check")
+    s, a = 371, 12
+    neurons, steps, epoch = (8, 2, 2) if cpu else (LIQ_NEURONS, LIQ_STEPS, LIQ_EPOCH)
+    sizes = ({"actor_critic_liquid": 8, "soft_actor_critic_liquid": 8,
+              "ppo_gae_liquid": (3, 40)} if cpu else
+             {"actor_critic_liquid": LIQ_BATCH, "soft_actor_critic_liquid": LIQ_BATCH,
+              "ppo_gae_liquid": (LIQ_GAE_TRAJ, LIQ_GAE_MAX_LEN)})
+    rng = np.random.default_rng(args.seed)
+    out = {}
+    for algo in LIQ_ALGOS:
+        gae = algo == "ppo_gae_liquid"
+        n_epochs = epoch if gae else 1
+        b = sizes[algo][0] if gae else sizes[algo]
+        agents = [_liquid_agent(algo, args.seed, s, a, neurons, steps, b, epoch, d)
+                  for d in (dev, "cpu")]
+        inputs = [_liquid_batch(algo, rng, s, a, sizes, agents[1]) for _ in range(2)]
+        shape = tuple(inputs[0][0].shape)
+        params = {str(i) for i, c in enumerate(agents[0].CARRY)
+                  if not c.endswith(("_optimizer", "_state"))}
+        lr = LIQ_LR[algo]
+        res = {}
+        for n_upd, batch in enumerate(inputs, 1):
+            if n_upd == 2:
+                agents[0].load_carry_tree(agents[1].carry_tree())
+            losses = [_liquid_update(algo, ag, batch).cpu() for ag in agents]
+            loss_err = float((losses[0] - losses[1]).abs().max())
+            errs = _tree_errs(_flatten(agents[0].carry_tree()), _flatten(agents[1].carry_tree()))
+            p_errs = {k: v for k, v in errs.items() if k.split("/")[0] in params}
+            adam = {k: v for k, v in errs.items() if k not in p_errs}
+            held = {} if n_upd == 1 else (p_errs if gae else errs)
+            p_worst, a_worst = max(p_errs, key=p_errs.get), max(adam, key=adam.get)
+            worst = max(held, key=held.get) if held else None
+            held_err = held[worst] if held else 0.0
+            two_lr = 2 * lr * n_epochs
+            print(f"{algo} update {n_upd}, card vs CPU ({agents[0].count_parameters():,} "
+                  f"parameters, input {shape}, {n_epochs} epoch(s)): losses max |diff| "
+                  f"{loss_err:.3e}; parameters {p_errs[p_worst]:.3e} at {p_worst}"
+                  + (f" (2 lr per epoch = {two_lr:g})" if n_upd == 1 else "")
+                  + f"; Adam moments {adam[a_worst]:.3e} at {a_worst} "
+                  f"({'held' if a_worst in held else 'printed'}); held tensors {len(held)}, "
+                  f"max |diff| {held_err:.3e} (tol {UPDATE_TOL:g})", flush=True)
+            if not (loss_err <= UPDATE_TOL and held_err <= UPDATE_TOL):
+                fail(f"{algo} update {n_upd} on the card disagrees with the CPU: losses "
+                     f"{loss_err}, {worst} {held_err}")
+            res[f"update_{n_upd}"] = {"loss_err": loss_err, "held_err": held_err,
+                                      "param_err": p_errs[p_worst], "adam_err": adam[a_worst],
+                                      "two_lr": two_lr}
+        ms = launches = busy = None
+        if not cpu:
+            reps = {"actor_critic_liquid": 10, "soft_actor_critic_liquid": 10,
+                    "ppo_gae_liquid": 2}[algo]
+            ms = cuda_ms(lambda: _liquid_update(algo, agents[0], inputs[1]), reps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _liquid_update(algo, agents[0], inputs[1])
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            launches, busy = len(events), sum(d for _, d in events) / 1e3
+            print(f"{algo}: {ms:.3f} ms per update on the card (CUDA events, {reps} updates); "
+                  f"{launches} device launches (kernels, copies, fills) and {busy:.3f} ms of "
+                  f"device time per update (torch.profiler): the device busy "
+                  f"{100 * busy / ms:.1f}% [{card}]", flush=True)
+        out[algo] = {**res, "ms_per_update": ms, "launches_per_update": launches,
+                     "device_ms_per_update": busy}
+    done("liquid update check", t0)
+    return out
+
+
+def liquid_train(args, dev, cpu, card, cap, algo, keep=None):
+    """Phases 26-27, the CLI's batched liquid ``train``: ``cli.main(["cli",
+    "robot_walk", algo, "--num_envs", ..., "train", out, "-e", "2", "-n",
+    "1"])`` with the JAX driver's liquid defaults (64 neurons, 6
+    unfoldings, horizon 64; PPO-GAE at 2048 envs and 8 epochs, SAC at 256
+    envs, batch 256, an update per env step and a 65,536-entry ring) and
+    ``EVOMOTION_PROFILE=1`` (``profiled_train``: the slim sweep once per
+    physics step, 60 + 2 x 64 = 188, its first call against its plain
+    version). The losses must be finite, every actor tensor must have moved
+    from its seeded init, and ``save_0`` must load back equal into a fresh
+    agent on the card. SAC: each iteration's ``updates_done`` (64), the
+    ring's fill and bytes, gradient steps/s. ``save_0`` is copied to
+    ``keep`` (phase 28 runs it on the sequential agent)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.networks.liquid import LiquidActor
+    from evomotion_tpu_torch.train import offpolicy_batched as ob
+
+    label = f"{algo} train"
+    t0 = phase(label)
+    sac = algo == "soft_actor_critic_liquid"
+    neurons, steps, horizon = (8, 2, 2) if cpu else (LIQ_NEURONS, LIQ_STEPS, 64)
+    n_envs = 2 if cpu else (LIQ_SAC_ENVS if sac else LIQ_PPO_ENVS)
+    kv = {"neuron_number": neurons, "unfolding_steps": steps, "horizon": horizon}
+    if sac:
+        kv.update(batch_size=4 if cpu else 256, learning_rate=3e-4, train_every=1,
+                  replay_buffer_size=64 if cpu else 65536)
+    else:
+        kv.update(epoch=1 if cpu else LIQ_EPOCH, learning_rate=1e-3)
+    kept, own = [], ob.BatchedOffPolicyLiquid.train_step_fn
+
+    def recording(self, *a, **k):
+        step = own(self, *a, **k)
+
+        def run(state, *x):
+            state, m = step(state, *x)
+            kept.append((state, m))
+            return state, m
+        return run
+
+    with tempfile.TemporaryDirectory() as out, small_walker(cpu):
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
+                str(args.seed), "--agent_parameters", *(f"{k}={v}" for k, v in kv.items()),
+                "train", out, "-e", str(LIQ_ITERS), "-n", "1"]
+        ob.BatchedOffPolicyLiquid.train_step_fn = recording
+        try:
+            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, LIQ_ITERS,
+                                                                horizon, dev, cpu, cap)
+        finally:
+            ob.BatchedOffPolicyLiquid.train_step_fn = own
+        extra = {}
+        if sac:
+            updates = [int(m.updates_done) for _, m in kept]
+            ring = kept[-1][0].ring
+            ring_bytes = sum(t.numel() * t.element_size() for f in ring[:-2]
+                             for t in (f.values() if isinstance(f, dict) else [f]))
+            per_iter = horizon  # train_every 1, epoch 1
+            # the rehearsal's 2 envs fill no batch of 4 trainable transitions at first
+            if updates != [per_iter] * LIQ_ITERS and not (cpu and len(updates) == LIQ_ITERS):
+                fail(f"{label}: updates_done {updates}, expected {per_iter} per iteration")
+            grad_rate = per_iter / (ms["train_iter"] / 1e3)
+            extra = {"updates_done": updates, "ring_bytes": ring_bytes, "grad_rate": grad_rate}
+            print(f"{label}: updates_done per iteration {updates}; ring filled "
+                  f"{ring.filled} of {ring.obs.shape[0]} ({ring_bytes / 2**20:.1f} MiB, hidden "
+                  f"states of 5 nets in and out included); {grad_rate:.1f} gradient steps/s "
+                  f"incl. the rollout ({per_iter / (ms['update'] / 1e3):.1f} within the update "
+                  f"phase) [{card}]", flush=True)
+            del kept[:], ring
+        print(f"{label} [{card}]: per iteration ({horizon} steps x {n_envs} envs): rollout "
+              f"{ms['rollout']:.0f} ms, update {ms['update']:.0f} ms, iteration "
+              f"{ms['train_iter']:.0f} ms (StepTimer, 10 ms resolution); {rate:.0f} env-steps/s "
+              f"incl. the update; last actor loss {prog[-1][0]}, critic loss {prog[-1][1]}",
+              flush=True)
+        save = os.path.join(out, "save_0")
+        s, a = env.observation_size, env.action_size
+        start = LiquidActor(s, a, neurons, steps, torch.Generator().manual_seed(args.seed))
+        agent = _liquid_agent(algo, 123, s, a, neurons, steps, kv.get("batch_size", 2),
+                              kv.get("epoch", 1), dev)
+        _saved_equal(label, agent, save)
+        moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
+                 for (n, p), q in zip(agent.actor.named_parameters(), start.parameters())}
+        if not all(x > 0 and math.isfinite(x) for x in moved.values()):
+            fail(f"{label}: actor params did not all move from their init: {moved}")
+        count = int(np.load(os.path.join(save, "actor_optimizer.npz"))[
+            "0/count" if sac else "1/0/count"])
+        print(f"{label}: actor params moved from their init by max |diff| "
+              f"{min(moved.values()):.3e} (least tensor) to {max(moved.values()):.3e}; save_0 "
+              f"({len(agent.SAVE)} components) loads back equal on the card, Adam count "
+              f"{count}", flush=True)
+        if keep is not None:
+            shutil.copytree(save, keep, dirs_exist_ok=True)
+    done(label, t0)
+    return {"launches": launches, "ms": ms, "rate": rate, "err": kern_err, **extra}
+
+
+def liquid_sequential(args, dev, cpu, card, fat_cap, ppo_save, random_lengths):
+    """Phase 28, the sequential tier with the liquid agents: ``cli cartpole
+    <agent> ... train -e 2 -n 1`` then ``run`` of ``save_0`` for the three
+    liquid agents (the fat-row sweep once per physics step); ``cli
+    robot_walk ppo_gae_liquid ... run`` of phase 26's batched ``save_0``
+    (twice per physics step); ``cli cartpole soft_actor_critic_liquid ...
+    run`` of the port's copy of the JAX package's liquid-SAC cartpole
+    checkpoint, 3 episodes, its lengths printed beside phase 11's random
+    agent's (a reading). Each command through :func:`seq_command`."""
+    import tempfile
+
+    t0 = phase("liquid sequential")
+    total, errs, ms = 0, [], {}
+    small = ["neuron_number=8", "unfolding_steps=2"]
+
+    def params(algo):  # the rehearsal's narrow cells
+        kv = [f"seed={args.seed}", *LIQ_SEQ_PARAMS[algo]]
+        return kv + small if cpu else kv
+
+    with perenv_steps() as steps, tempfile.TemporaryDirectory() as tmp, small_walker(cpu):
+        cases = []
+        for algo in LIQ_ALGOS:
+            base = ["cli", "cartpole", algo, "--env_seed", str(args.seed), "--agent_parameters",
+                    *params(algo), "--env_parameters", "mas_steps=300"]
+            out = os.path.join(tmp, algo)
+            cases += [(f"cartpole {algo} train", base + ["train", out, "-e", "2", "-n", "1"], 1),
+                      (f"cartpole {algo} run", base + ["run", os.path.join(out, "save_0"),
+                                                       "--episodes", "1"], 1)]
+        walk = ["cli", "robot_walk", "ppo_gae_liquid", "--env_seed", str(args.seed),
+                "--agent_parameters", *params("ppo_gae_liquid")]
+        if cpu:
+            walk += ["--env_parameters", "initial_remaining_seconds=0.05"]
+        cases.append(("robot_walk ppo_gae_liquid run of the batched save_0",
+                      walk + ["run", ppo_save, "--episodes", "1"], 2))
+        committed = ["cli", "cartpole", "soft_actor_critic_liquid", "--env_seed", str(args.seed),
+                     "--agent_parameters", f"seed={args.seed}", *LIQ_CARTPOLE_PARAMS, "run",
+                     LIQ_CARTPOLE_SAVE, "--episodes", str(len(random_lengths))]
+        cases.append(("cartpole soft_actor_critic_liquid run of the committed checkpoint",
+                      committed, 1))
+        for label, argv, per_step in cases:
+            r = seq_command(argv, label, per_step, dev, cpu, card, fat_cap, steps)
+            total += r["launches"]
+            errs.append(r["err"])
+            ms[label] = r["s"] / r["physics_steps"] * 1e3
+        lengths = r["episode_steps"]
+    print(f"liquid sequential: the committed liquid SAC's cartpole episodes {lengths} steps "
+          f"(mean {sum(lengths) / len(lengths):.1f}) against the random agent's "
+          f"{random_lengths} (phase 11, same env seed); a reading [{card}]", flush=True)
+    done("liquid sequential", t0)
+    return {"launches": total, "err": max(errs), "ms_per_physics_step": ms,
+            "committed_sac_lengths": lengths, "random_lengths": random_lengths}
 
 
 def main(argv=None):
@@ -2248,8 +2639,16 @@ def main(argv=None):
         on_train = {algo: onpolicy_train(args, dev, cpu, card, cap, algo)
                     for algo in ("actor_critic", "ppo_vanilla")}
         on_seq = onpolicy_sequential(args, dev, cpu, card, fat_cap, ppo_save, train["hidden"])
+    liq_update = liquid_update_check(args, dev, cpu, card)
+    with tempfile.TemporaryDirectory() as liq_save:
+        liq_train = {"ppo_gae_liquid": liquid_train(args, dev, cpu, card, cap, "ppo_gae_liquid",
+                                                    keep=liq_save),
+                     "soft_actor_critic_liquid": liquid_train(args, dev, cpu, card, cap,
+                                                              "soft_actor_critic_liquid")}
+        liq_seq = liquid_sequential(args, dev, cpu, card, fat_cap, liq_save,
+                                    seq["lengths"]["cartpole"])
 
-    # ---- 25. readings lines, kernels line and last line ----
+    # ---- 29. readings lines, kernels line and last line ----
     print(json.dumps({"offpolicy": {
         "update_check": off_update,
         "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
@@ -2258,6 +2657,11 @@ def main(argv=None):
         "update_check": on_update,
         "train": {k: {x: v[x] for x in ("ms", "rate")} for k, v in on_train.items()},
         "robot_jump": jump, "sequential": on_seq}}), flush=True)
+    print(json.dumps({"liquid": {
+        "update_check": liq_update,
+        "train": {k: {x: v[x] for x in ("ms", "rate", "launches", "updates_done", "ring_bytes",
+                                       "grad_rate") if x in v} for k, v in liq_train.items()},
+        "sequential": liq_seq}}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -2268,17 +2672,20 @@ def main(argv=None):
         "launches": (main_run["launches"] + sched_run["launches"] + walker["launches"]
                      + train["launches"] + sum(t["launches"] for t in off_train.values())
                      + jump["batched"]["launches"]
-                     + sum(t["launches"] for t in on_train.values())),
+                     + sum(t["launches"] for t in on_train.values())
+                     + sum(t["launches"] for t in liq_train.values())),
         "launches_by_path": {"batched canonical": main_run["launches"],
                              "batched scheduled": sched_run["launches"],
                              "walker eval": walker["launches"],
                              "ppo train": train["launches"],
                              **{f"{k} train": t["launches"] for k, t in off_train.items()},
                              "robot_jump batched": jump["batched"]["launches"],
-                             **{f"{k} train": t["launches"] for k, t in on_train.items()}},
+                             **{f"{k} train": t["launches"] for k, t in on_train.items()},
+                             **{f"{k} train": t["launches"] for k, t in liq_train.items()}},
         "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"],
                            *(t["err"] for t in off_train.values()), jump["kernel_err"],
-                           *(t["err"] for t in on_train.values())),
+                           *(t["err"] for t in on_train.values()),
+                           *(t["err"] for t in liq_train.values())),
         "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),
@@ -2296,13 +2703,14 @@ def main(argv=None):
         "replaces": FAT_REPLACES,
         "tpu_kernel": FAT_TPU_KERNEL,
         "launches": (seq["launches"] + off_seq["launches"] + jump["run"]["launches"]
-                     + on_seq["launches"]),
+                     + on_seq["launches"] + liq_seq["launches"]),
         "launches_by_path": {"sequential run": seq["launches"],
                              "offpolicy sequential train and run": off_seq["launches"],
                              "robot_jump run": jump["run"]["launches"],
-                             "onpolicy sequential train and run": on_seq["launches"]},
+                             "onpolicy sequential train and run": on_seq["launches"],
+                             "liquid sequential train and run": liq_seq["launches"]},
         "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err,
-                           off_seq["err"], jump["run"]["err"], on_seq["err"]),
+                           off_seq["err"], jump["run"]["err"], on_seq["err"], liq_seq["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": fat["times"].get("ms"),

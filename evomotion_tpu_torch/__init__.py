@@ -11,13 +11,15 @@ physics step); batched PPO-GAE training through the CLI's ``train
 (``train.onpolicy_step_batched``); the off-policy tier: batched SAC and
 CrossQ with a device ring (``train.offpolicy_batched``,
 ``tools.train_walk_offpolicy``, ``tools.train_offpolicy_cartpole``); the
-sequential agents A2C, PPO-vanilla, PPO-GAE, SAC and CrossQ (``agents``,
-with their replay buffers in ``buffers.replay``) through ``train
---num_envs 1`` then ``run``; and the greedy evaluation of a checkpoint,
-the committed walker's copy in ``resources/walker_r5e_s42`` among them
-(``tools.eval_walk``). The networks (``networks``) are PyTorch modules; the
-sequential-impulse sweeps are hand-written CUDA kernels (``kernels/csrc``).
-Still raising, each naming its ROADMAP item: the liquid agents (A8), their
-batched trainers (A7) and the viewer (A11). Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+liquid (LTC) tier: liquid networks (``networks.liquid``), batched liquid
+PPO-GAE (``train.ppo_liquid_batched``) and liquid SAC
+(``train.offpolicy_batched``); the sequential agents A2C, PPO-vanilla,
+PPO-GAE, SAC, CrossQ and the three liquid agents (``agents``, with their
+replay buffers in ``buffers.replay``) through ``train --num_envs 1`` then
+``run``; and the greedy evaluation of a checkpoint, the committed walker's
+copy in ``resources/walker_r5e_s42`` among them (``tools.eval_walk``). The
+networks (``networks``) are PyTorch modules; the sequential-impulse sweeps
+are hand-written CUDA kernels (``kernels/csrc``). Still raising, naming
+its ROADMAP item: the viewer (A11). Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """

@@ -32,10 +32,11 @@ class ActorCriticAgent(StepBufferAgent):
     def __init__(
         self, seed, state_space, action_space, hidden_size, batch_size, learning_rate, gamma,
         entropy_start_factor, entropy_end_factor, entropy_steps, replay_buffer_size,
-        train_every, device=None,
+        train_every, device=None, unfolding_steps=None,
     ):
+        # unfolding_steps: liquid networks (agents.liquid_agents)
         init_actor_critic(self, seed, state_space, action_space, hidden_size, learning_rate,
-                          device)
+                          device, unfolding_steps)
         self.gamma = gamma
         self.entropy_start_factor = entropy_start_factor
         self.entropy_end_factor = entropy_end_factor

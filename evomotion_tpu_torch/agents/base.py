@@ -9,8 +9,9 @@ of one (``state [1, obs]`` -> ``action [1, act]``).
 What the port's learning agents share: :class:`ComponentAgent` (one Adam
 step of a module, checkpoints and the JAX carry by component),
 :class:`StepBufferAgent` (``act``/``done`` over a step replay buffer: A2C,
-PPO-vanilla, SAC, CrossQ) and :func:`init_actor_critic` (the on-policy
-agents' networks and optimizers).
+PPO-vanilla, SAC, CrossQ and the liquid A2C and SAC) and
+:func:`init_actor_critic` (the on-policy agents' networks and optimizers,
+liquid or not).
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import abc
 
 import torch
 
-from ..buffers.replay import EpisodeStep
+from ..buffers.replay import EpisodeStep, LiquidEpisodeStep
 from ..convert import adam_tree, load_adam, load_params, load_state, params_tree, state_tree
 from ..device import resolve
 from ..networks import distributions as D
+from ..networks.liquid import LiquidActor, LiquidCritic
 from ..networks.modules import Actor, Critic
 from ..train.checkpoint import load_component, save_component
 from ..train.ppo_batched import clip_by_global_norm_
@@ -141,17 +143,23 @@ class StepBufferAgent(ComponentAgent):
     def _uniform(self, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, device=self.device)
 
+    def _policy(self, state):
+        """(action [1, A], a draw of the policy at ``state`` [1, S]; the
+        hidden states a liquid agent stores with the step, else None)."""
+        with torch.no_grad():
+            mu, sigma = self.actor(state)
+            return D.truncated_normal_sample(mu, sigma, u=self._uniform(mu.shape)), None
+
     def act(self, state, reward):
         """state [1, S] -> action [1, A], a draw of the policy; stores the
         transition and patches the previous one with ``reward``."""
         state = state.to(self.device)
-        with torch.no_grad():
-            mu, sigma = self.actor(state)
-            action = D.truncated_normal_sample(mu, sigma, u=self._uniform(mu.shape))
+        action, x_t = self._policy(state)
         s = state[0]
         if not self.replay_buffer.empty():
             self.replay_buffer.update_last(reward=reward, next_state=s, done=False)
-        self.replay_buffer.add(EpisodeStep(s, action[0], 0.0, False, s))
+        step = EpisodeStep(s, action[0], 0.0, False, s)
+        self.replay_buffer.add(step if x_t is None else LiquidEpisodeStep(step, x_t))
         self._check_train()
         self.curr_episode_step += 1
         self.global_curr_step += 1
@@ -184,16 +192,23 @@ ACTOR_CRITIC = ("actor", "actor_optimizer", "critic", "critic_optimizer")
 
 
 def init_actor_critic(agent, seed: int, state_space: int, action_space: int, hidden_size: int,
-                      learning_rate: float, device) -> None:
+                      learning_rate: float, device, unfolding_steps: int | None = None) -> None:
     """Gives ``agent`` its ``device``, an ``actor`` and a ``critic`` (weights
     drawn from a CPU generator seeded with ``seed``, actor first: the same
     weights on every device), their ``torch.optim.Adam`` optimizers
     ``actor_opt`` and ``critic_opt`` (optax's ``adam`` with its defaults),
-    and a ``generator`` on the device seeded with ``seed``."""
+    and a ``generator`` on the device seeded with ``seed``. With
+    ``unfolding_steps`` the networks are the liquid ones
+    (``networks.liquid``), ``hidden_size`` their cells' neuron count."""
     agent.device = dev = resolve(device)
     gen = torch.Generator().manual_seed(seed)
-    agent.actor = Actor(state_space, action_space, hidden_size, gen).to(dev)
-    agent.critic = Critic(state_space, hidden_size, gen).to(dev)
+    if unfolding_steps is None:
+        agent.actor = Actor(state_space, action_space, hidden_size, gen).to(dev)
+        agent.critic = Critic(state_space, hidden_size, gen).to(dev)
+    else:
+        agent.actor = LiquidActor(state_space, action_space, hidden_size, unfolding_steps,
+                                  gen).to(dev)
+        agent.critic = LiquidCritic(state_space, hidden_size, unfolding_steps, gen).to(dev)
     agent.actor_opt = torch.optim.Adam(agent.actor.parameters(), lr=learning_rate)
     agent.critic_opt = torch.optim.Adam(agent.critic.parameters(), lr=learning_rate)
     agent.generator = torch.Generator(device=dev).manual_seed(seed)

@@ -70,13 +70,14 @@ class CrossQAgent(OffPolicyAgent):
         c1_loss = self._step("critic_1", ((q1 - target_q) ** 2).mean())
         c2_loss = self._step("critic_2", ((q2 - target_q) ** 2).mean())
 
-        def q_eval(s, a):  # the updated critics in eval mode (cross_q.cpp:93-98)
-            return torch.minimum(self.critic_1(s, a), self.critic_2(s, a))
+        def q_eval(a):  # the updated critics in eval mode (cross_q.cpp:93-98)
+            return torch.minimum(self.critic_1(states, a), self.critic_2(states, a))
 
         self.critic_1.eval()
         self.critic_2.eval()
         try:
-            a_loss, e_loss = self._actor_and_temperature(states, u_curr, alpha, q_eval)
+            a_loss, e_loss = self._actor_and_temperature(self.actor(states), u_curr, alpha,
+                                                             q_eval)
         finally:
             self.critic_1.train()
             self.critic_2.train()

@@ -5,11 +5,11 @@ Reference: evo_motion_networks/src/agent_factory.cpp. Agent parameters have
 NO defaults: a missing key raises ValueError (agent_factory.cpp:26-30 throws
 std::invalid_argument). Registry names match AGENT_FACTORY_CONSTRUCTORS
 (:189-206). Ported: the debug agents, the on-policy agents
-``actor_critic``, ``ppo_vanilla`` and ``ppo_gae``, and the off-policy agents
-``soft_actor_critic`` and ``cross_q``. The liquid agents are listed and
-raise NotImplementedError naming their ROADMAP item (A8) when
-``create_agent`` is called. ``create_agent`` builds the agent on ``device``
-(default ``cuda``).
+``actor_critic``, ``ppo_vanilla`` and ``ppo_gae``, the off-policy agents
+``soft_actor_critic`` and ``cross_q``, and the liquid agents
+``actor_critic_liquid``, ``ppo_gae_liquid`` and ``soft_actor_critic_liquid``
+(every one the JAX package has). ``create_agent`` builds the agent on
+``device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from .actor_critic import ActorCriticAgent
 from .base import Agent
 from .cross_q import CrossQAgent
 from .debug_agents import ConstantAgent, RandomAgent
+from .liquid_agents import ActorCriticLiquidAgent, PpoGaeLiquidAgent, SoftActorCriticLiquidAgent
 from .ppo_gae import PpoGaeAgent
 from .ppo_vanilla import PpoVanillaAgent
 from .soft_actor_critic import SoftActorCriticAgent
@@ -72,6 +73,17 @@ class ActorCriticFactory(AgentFactory):
         )
 
 
+class ActorCriticLiquidFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return ActorCriticLiquidAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("neuron_number"),
+            self.get_int("batch_size"), self.get_float("lr"), self.get_float("gamma"),
+            self.get_float("entropy_start_factor"), self.get_float("entropy_end_factor"),
+            self.get_int("entropy_steps"), self.get_int("unfolding_steps"),
+            self.get_int("replay_buffer_size"), self.get_int("train_every"), device=device,
+        )
+
+
 class SoftActorCriticFactory(AgentFactory):
     def create_agent(self, state_space, action_space, device=None):
         return SoftActorCriticAgent(
@@ -83,6 +95,17 @@ class SoftActorCriticFactory(AgentFactory):
         )
 
 
+class SoftActorCriticLiquidFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return SoftActorCriticLiquidAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("neuron_number"),
+            self.get_int("batch_size"), self.get_int("epoch"),
+            self.get_float("learning_rate"), self.get_float("gamma"), self.get_float("tau"),
+            self.get_int("unfolding_steps"), self.get_int("replay_buffer_size"),
+            self.get_int("train_every"), device=device,
+        )
+
+
 class PpoGaeFactory(AgentFactory):
     def create_agent(self, state_space, action_space, device=None):
         return PpoGaeAgent(
@@ -90,6 +113,19 @@ class PpoGaeFactory(AgentFactory):
             self.get_float("gamma"), self.get_float("lambda"), self.get_float("epsilon"),
             self.get_float("entropy_factor"), self.get_float("critic_loss_factor"),
             self.get_int("epoch"), self.get_int("batch_size"), self.get_int("train_every"),
+            self.get_int("replay_buffer_size"), self.get_float("learning_rate"),
+            self.get_float("clip_grad_norm"), device=device,
+        )
+
+
+class PpoGaeLiquidFactory(AgentFactory):
+    def create_agent(self, state_space, action_space, device=None):
+        return PpoGaeLiquidAgent(
+            self.get_int("seed"), state_space, action_space, self.get_int("neuron_number"),
+            self.get_int("unfolding_steps"), self.get_float("gamma"), self.get_float("lambda"),
+            self.get_float("epsilon"), self.get_float("entropy_factor"),
+            self.get_float("critic_loss_factor"), self.get_int("epoch"),
+            self.get_int("batch_size"), self.get_int("train_every"),
             self.get_int("replay_buffer_size"), self.get_float("learning_rate"),
             self.get_float("clip_grad_norm"), device=device,
         )
@@ -117,26 +153,15 @@ class CrossQFactory(AgentFactory):
         )
 
 
-def _not_ported(name: str, item: str):
-    class _Factory(AgentFactory):
-        def create_agent(self, state_space, action_space, device=None):
-            raise NotImplementedError(f"agent {name!r} is not ported yet (ROADMAP {item})")
-
-    _Factory.__name__ = f"NotPorted_{name}"
-    return _Factory
-
-
-# the liquid agents (act/done/save/load, the CLI's `train --num_envs 1` and
-# `run` of a trained agent) are ROADMAP A8
 AGENT_FACTORY_CONSTRUCTORS = {
     "random": RandomAgentFactory,
     "constant": ConstantAgentFactory,
     "actor_critic": ActorCriticFactory,
-    "actor_critic_liquid": _not_ported("actor_critic_liquid", "A8"),
+    "actor_critic_liquid": ActorCriticLiquidFactory,
     "soft_actor_critic": SoftActorCriticFactory,
-    "soft_actor_critic_liquid": _not_ported("soft_actor_critic_liquid", "A8"),
+    "soft_actor_critic_liquid": SoftActorCriticLiquidFactory,
     "ppo_gae": PpoGaeFactory,
-    "ppo_gae_liquid": _not_ported("ppo_gae_liquid", "A8"),
+    "ppo_gae_liquid": PpoGaeLiquidFactory,
     "ppo_vanilla": PpoVanillaFactory,
     "cross_q": CrossQFactory,
 }

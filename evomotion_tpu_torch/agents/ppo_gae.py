@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..buffers.replay import PpoEpisodeStep, TrajectoryReplayBuffer
+from ..buffers.replay import LiquidPpoEpisodeStep, PpoEpisodeStep, TrajectoryReplayBuffer
 from ..networks import distributions as D
 from ..train.metrics import LossMeter
 from .base import ACTOR_CRITIC, ComponentAgent, init_actor_critic
@@ -42,10 +42,11 @@ class PpoGaeAgent(ComponentAgent):
     def __init__(
         self, seed, state_space, action_space, hidden_size, gamma, lam, epsilon,
         entropy_factor, critic_loss_factor, epoch, batch_size, train_every, replay_buffer_size,
-        learning_rate, clip_grad_norm, device=None,
+        learning_rate, clip_grad_norm, device=None, unfolding_steps=None,
     ):
+        # unfolding_steps: liquid networks (agents.liquid_agents)
         init_actor_critic(self, seed, state_space, action_space, hidden_size, learning_rate,
-                          device)
+                          device, unfolding_steps)
         # torch: clip_grad_norm_ then Adam step (ppo_gae.cpp:171-186), by optax's rule
         self.clip = clip_grad_norm
         self.gamma, self.lam, self.epsilon = gamma, lam, epsilon
@@ -65,7 +66,7 @@ class PpoGaeAgent(ComponentAgent):
         S], actions [B, T, A], rewards [B, T, 1], dones [B, T, 1], log_probs
         [B, T, A], curr_values [B, T, 1], next_values [B, T, 1]), in place.
         Returns each epoch's actor and critic loss, [epoch, 2]."""
-        states, actions, rewards, dones, log_probs, curr_values, next_values = batch
+        states, actions, rewards, dones, log_probs, curr_values, next_values = batch[:7]
         gamma, lam, eps = self.gamma, self.lam, self.epsilon
         with torch.no_grad():
             # mask: the first step always valid; step t valid if t-1 not done
@@ -85,7 +86,7 @@ class PpoGaeAgent(ComponentAgent):
             n_act = torch.clamp_min((maskf * torch.ones_like(actions)).sum(), 1.0)
         losses = []
         for _ in range(self.epoch):
-            mu, sigma = self.actor(states)
+            mu, sigma = self._pi(batch)
             log_prob = D.truncated_normal_log_pdf(actions, mu, sigma)
             entropy = D.truncated_normal_entropy(mu, sigma)
             ratios = torch.exp(log_prob - log_probs)
@@ -93,10 +94,18 @@ class PpoGaeAgent(ComponentAgent):
             s2 = torch.clamp(ratios, 1.0 - eps, 1.0 + eps) * advantages
             obj = torch.minimum(s1, s2) + self.entropy_factor * entropy
             a_loss = self._step("actor", -(obj * maskf).sum() / n_act)
-            se = (self.critic(states) - returns) ** 2
+            se = (self._v(batch) - returns) ** 2
             c_loss = self._step("critic", self.critic_loss_factor * (se * maskf).sum() / n)
             losses.append(torch.stack([a_loss, c_loss]))
         return torch.stack(losses)
+
+    def _pi(self, batch):
+        """(mu, sigma) of the actor at the batch's states."""
+        return self.actor(batch[0])
+
+    def _v(self, batch):
+        """The critic's values at the batch's states."""
+        return self.critic(batch[0])
 
     # -- the sequential tier ----------------------------------------------------
 
@@ -105,23 +114,33 @@ class PpoGaeAgent(ComponentAgent):
         step with its log-probability and value, and patches the previous
         step with ``reward`` and this value as its next value."""
         state = state.to(self.device)
-        with torch.no_grad():
-            mu, sigma = self.actor(state)
-            action = D.truncated_normal_sample(mu, sigma, self.generator)
-            log_prob = D.truncated_normal_log_pdf(action, mu, sigma)
-            value = self.critic(state)[0]
+        action, log_prob, value, x_t = self._policy(state)
         buf = self.replay_buffer
         if buf.empty():
             buf.new_trajectory()
         if not buf.trajectory_empty():
             buf.update_last(reward=reward, done=False, next_value=value)
-        buf.add(PpoEpisodeStep(state[0], action[0], 0.0, False, log_prob[0], value, value))
+        step = PpoEpisodeStep(state[0], action[0], 0.0, False, log_prob[0], value, value)
+        buf.add(step if x_t is None else LiquidPpoEpisodeStep(step, x_t))
         self.curr_episode_step += 1
         return action
 
+    @torch.no_grad()
+    def _policy(self, state):
+        """(action [1, A], a draw of the policy at ``state`` [1, S]; its
+        log-probability [1, A]; the value [1]; the hidden states a liquid
+        agent stores with the step, else None)."""
+        mu, sigma = self.actor(state)
+        action = D.truncated_normal_sample(mu, sigma, self.generator)
+        return action, D.truncated_normal_log_pdf(action, mu, sigma), self.critic(state)[0], None
+
+    @torch.no_grad()
+    def _value(self, state):
+        """The value [1] of ``state`` [1, S]."""
+        return self.critic(state)[0]
+
     def done(self, state, reward):
-        with torch.no_grad():
-            value = self.critic(state.to(self.device))[0]
+        value = self._value(state.to(self.device))
         self.replay_buffer.update_last(reward=reward, done=True, next_value=value)
         self._check_train()
         self.replay_buffer.new_trajectory()
@@ -137,11 +156,7 @@ class PpoGaeAgent(ComponentAgent):
         pad_t = int(math.ceil(max(len(t) for t in episodes) / PAD) * PAD)
 
         def stack(get):
-            rows = [torch.stack([get(s) for s in traj]) for traj in episodes]
-            out = torch.zeros((len(episodes), pad_t, rows[0].shape[-1]), device=dev)
-            for i, r in enumerate(rows):
-                out[i, : r.shape[0]] = r
-            return out
+            return self._stack(episodes, get, pad_t)
 
         rewards = np.zeros((len(episodes), pad_t, 1), np.float32)
         dones = np.ones((len(episodes), pad_t, 1), np.float32)  # pad = done
@@ -153,6 +168,15 @@ class PpoGaeAgent(ComponentAgent):
                 torch.as_tensor(rewards, device=dev), torch.as_tensor(dones, device=dev),
                 stack(lambda s: s.log_prob), stack(lambda s: s.value),
                 stack(lambda s: s.next_value))
+
+    def _stack(self, episodes, get, pad_t: int) -> torch.Tensor:
+        """``get`` of every step of ``episodes``, [len(episodes), pad_t, W]
+        on the agent's device, zero past each trajectory's end."""
+        rows = [torch.stack([get(s) for s in traj]) for traj in episodes]
+        out = torch.zeros((len(episodes), pad_t, rows[0].shape[-1]), device=self.device)
+        for i, r in enumerate(rows):
+            out[i, : r.shape[0]] = r
+        return out
 
     def _check_train(self):
         if not (self.global_curr_step % self.train_every == self.train_every - 1

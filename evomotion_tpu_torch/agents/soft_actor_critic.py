@@ -97,13 +97,14 @@ class OffPolicyAgent(StepBufferAgent):
             action = D.truncated_normal_sample(mu, sigma, u=u_next)
             return action, D.truncated_normal_log_pdf(action, mu, sigma).sum(-1, keepdim=True)
 
-    def _actor_and_temperature(self, states, u_curr, alpha, q_fn) -> tuple:
-        """The actor step through ``q_fn`` (the updated critics), then the
+    def _actor_and_temperature(self, pi, u_curr, alpha, q_fn) -> tuple:
+        """The actor step on the policy ``pi`` = (mu, sigma) at the batch's
+        states through ``q_fn(action)`` (the updated critics), then the
         temperature step; returns their losses."""
-        mu, sigma = self.actor(states)
+        mu, sigma = pi
         action = D.truncated_normal_sample(mu, sigma, u=u_curr)
         log_proba = D.truncated_normal_log_pdf(action, mu, sigma).sum(-1, keepdim=True)
-        a_loss = self._step("actor", (alpha * log_proba - q_fn(states, action)).mean())
+        a_loss = self._step("actor", (alpha * log_proba - q_fn(action)).mean())
         e_loss = self._step("entropy", -(self.entropy.log_alpha
                                          * (log_proba.detach() + self.target_entropy)).mean())
         return a_loss, e_loss
@@ -207,8 +208,8 @@ class SoftActorCriticAgent(OffPolicyAgent):
         c1_loss = self._step("critic_1", ((self.critic_1(states, actions) - target_q) ** 2).mean())
         c2_loss = self._step("critic_2", ((self.critic_2(states, actions) - target_q) ** 2).mean())
         a_loss, e_loss = self._actor_and_temperature(
-            states, u_curr, alpha,
-            lambda s, a: torch.minimum(self.critic_1(s, a), self.critic_2(s, a)))
+            self.actor(states), u_curr, alpha,
+            lambda a: torch.minimum(self.critic_1(states, a), self.critic_2(states, a)))
         soft_update(self.target_critic_1, self.critic_1, self.tau)
         soft_update(self.target_critic_2, self.critic_2, self.tau)
         return torch.stack([a_loss, c1_loss, c2_loss, e_loss])

@@ -10,14 +10,16 @@ The reference CLI surface (src/main.cpp:25-152):
 
 ``run`` is ported (the sequential tier: one world, the per-env physics step,
 on the card), and so are ``train --num_envs N`` with N > 1 for ``ppo_gae``,
-``actor_critic``, ``ppo_vanilla``, ``soft_actor_critic`` and ``cross_q``
-(the batched tier: ``train.driver.train_batched``) and the sequential
-``train`` (``--num_envs 1``, ``train.driver.train``) for the agents the
-port has (those five); ``run`` then loads the trained agent, a ``ppo_gae``
-checkpoint of the batched tier too. The liquid agents, their batched
-trainers, ``gui`` and run's viewer options (--record, --html, --live) parse
-but raise NotImplementedError naming their ROADMAP item. --cuda and --env_num_threads are accepted for
-surface parity and ignored.
+``ppo_gae_liquid``, ``actor_critic``, ``ppo_vanilla``, ``soft_actor_critic``,
+``soft_actor_critic_liquid`` and ``cross_q`` (the batched tier:
+``train.driver.train_batched``) and the sequential ``train``
+(``--num_envs 1``, ``train.driver.train``) for every learning agent of the
+reference (those and ``actor_critic_liquid``); ``run`` then loads the
+trained agent, a ``ppo_gae`` or ``ppo_gae_liquid`` checkpoint of the
+batched tier too. ``gui`` and run's viewer options (--record, --html,
+--live) parse but raise NotImplementedError naming their ROADMAP item
+(A11). --cuda and --env_num_threads are accepted for surface parity and
+ignored.
 """
 
 from __future__ import annotations
@@ -108,7 +110,6 @@ def main(argv=None, device=None):
             return train_batched(args.env_seed, env_factory, agent_kv, args.num_envs,
                                  args.episodes, args.nb_saves, args.output_path,
                                  agent_name=args.agent_name, device=device)
-        # a liquid agent raises from its factory (ROADMAP A8)
         return train(args.env_seed, agent_factory, env_factory, args.episodes, args.nb_saves,
                      args.output_path, device=device)
     if args.live or args.html:

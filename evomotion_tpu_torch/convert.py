@@ -11,17 +11,18 @@ with the env axis FIRST (a vmapped JAX state).
 
 Network weights: a JAX param or state pytree is nested dicts of arrays whose
 paths are the names of the port module's parameters and buffers
-(``networks.modules``: ``h1/lin/w`` is ``h1.lin.w``), so one pair of
-functions serves the actor, critic, Q and BN-Q networks and BatchRenorm:
+(``networks.modules``: ``h1/lin/w`` is ``h1.lin.w``; ``networks.liquid``:
+``cell/tau`` is ``cell.tau``), so one pair of functions serves the actor,
+critic, Q and BN-Q networks, their liquid counterparts and BatchRenorm:
 ``params_tree`` / ``load_params`` for parameters, ``state_tree`` /
 ``load_state`` for buffers (BatchRenorm's running statistics and step).
 ``adam_tree`` / ``load_adam`` map a ``torch.optim.Adam`` over a module's
 parameters to an optax Adam state and back: ``count`` is the step, ``mu``
 and ``nu`` are ``exp_avg`` and ``exp_avg_sq``. Two layouts: the JAX
 trainers' and agents' ``optax.chain(clip_by_global_norm, adam)``, ``((),
-(adam, ()))`` with keys ``1/0/count``, and the plain ``optax.adam`` of the
-SAC and CrossQ agents without a clip, ``(adam, ())`` with keys
-``0/count``.
+(adam, ()))`` with keys ``1/0/count`` (the PPOs, liquid or not), and the
+plain ``optax.adam`` of the SAC, CrossQ and A2C agents (liquid or not)
+without a clip, ``(adam, ())`` with keys ``0/count``.
 """
 
 from __future__ import annotations
@@ -157,14 +158,14 @@ def adam_tree(opt: torch.optim.Adam, module: nn.Module, clip: bool = True) -> tu
 def load_adam(opt: torch.optim.Adam, module: nn.Module, tree) -> torch.optim.Adam:
     """Fills ``opt``'s state over ``module``'s parameters from an optax
     state in either layout of :func:`adam_tree` (told apart by where
-    ``count`` is)."""
+    ``count`` is), as dicts or as optax's own NamedTuples."""
     adam = tree[0] if "count" in _keys(tree[0]) else tree[1][0]
-    count = float(np.asarray(adam["count"]))
+    count = float(np.asarray(_field(adam, "count")))
     for name, p in module.named_parameters():
         opt.state[p] = {
             "step": torch.tensor(count, dtype=torch.float32),
-            "exp_avg": torch.tensor(np.asarray(_at(adam["mu"], name))).to(p),
-            "exp_avg_sq": torch.tensor(np.asarray(_at(adam["nu"], name))).to(p),
+            "exp_avg": torch.tensor(np.asarray(_at(_field(adam, "mu"), name))).to(p),
+            "exp_avg_sq": torch.tensor(np.asarray(_at(_field(adam, "nu"), name))).to(p),
         }
     return opt
 

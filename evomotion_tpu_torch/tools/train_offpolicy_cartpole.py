@@ -3,11 +3,11 @@
 
     python -m evomotion_tpu_torch.tools.train_offpolicy_cartpole OUT [algo] [iters] [--device cpu]
 
-``algo`` is ``soft_actor_critic`` (default) or ``cross_q``;
-``soft_actor_critic_liquid`` waits for the liquid trainer (ROADMAP A7).
-``iters`` defaults to 250. The JAX tool's config: 64 envs x 16 steps per
-iteration, hidden 64, batch 128, one update per env step, lr 1e-3, a
-16,384-transition ring, seed 1234.
+``algo`` is ``soft_actor_critic`` (default), ``cross_q`` or
+``soft_actor_critic_liquid``. ``iters`` defaults to 250. The JAX tool's
+config: 64 envs x 16 steps per iteration, batch 128, one update per env
+step, lr 1e-3, seed 1234; hidden 64 and a 16,384-transition ring, or for
+the liquid SAC 32 neurons, 6 unfoldings and an 8,192-transition ring.
 
 Writes OUT/curve.csv: iter,env_steps,r_per_step,episodes_done,actor_loss,
 critic_1_loss. The discriminative signal on cartpole is episodes_done per
@@ -26,7 +26,12 @@ import sys
 
 from ..device import resolve
 from ..envs.cartpole import CartPoleFactory
-from ..train.offpolicy_batched import BatchedOffPolicy, OffPolicyConfig
+from ..train.offpolicy_batched import (
+    BatchedOffPolicy,
+    BatchedOffPolicyLiquid,
+    OffPolicyConfig,
+    OffPolicyLiquidConfig,
+)
 
 CURVE_COLUMNS = ["iter", "env_steps", "r_per_step", "episodes_done", "actor_loss",
                  "critic_1_loss"]
@@ -44,17 +49,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.algo == "soft_actor_critic_liquid":
-        raise NotImplementedError("the liquid SAC trainer is not ported yet (ROADMAP A7)")
     dev = resolve(args.device or device)
     os.makedirs(args.out, exist_ok=True)
     env = CartPoleFactory({}).make(1234, mt_parity=False, device=dev, per_env_step=False)
-    cfg = OffPolicyConfig(
-        actor_hidden_size=64, critic_hidden_size=64, batch_size=128, epoch=1,
-        steps_per_iter=16, n_envs=64, buffer_capacity=16384, train_every=1,
-        learning_rate=1e-3,
-    )
-    trainer = BatchedOffPolicy(env, args.algo, cfg, seed=1234)
+    if args.algo == "soft_actor_critic_liquid":
+        cfg = OffPolicyLiquidConfig(
+            neurons=32, unfolding_steps=6, batch_size=128, epoch=1,
+            steps_per_iter=16, n_envs=64, buffer_capacity=8192, train_every=1,
+            learning_rate=1e-3,
+        )
+        trainer = BatchedOffPolicyLiquid(env, cfg, seed=1234)
+    else:
+        cfg = OffPolicyConfig(
+            actor_hidden_size=64, critic_hidden_size=64, batch_size=128, epoch=1,
+            steps_per_iter=16, n_envs=64, buffer_capacity=16384, train_every=1,
+            learning_rate=1e-3,
+        )
+        trainer = BatchedOffPolicy(env, args.algo, cfg, seed=1234)
     step = trainer.train_step_fn()
     state = trainer.init()
     with open(os.path.join(args.out, "curve.csv"), "w", newline="") as f:

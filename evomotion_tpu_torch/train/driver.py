@@ -5,14 +5,15 @@
 physics step), act/done per step, ``save_<i>/`` every ``episodes``
 episodes. ``train_batched``: the batched trainers behind ``train
 --num_envs N`` (N > 1): N envs in lockstep on the batched physics step,
-PPO-GAE (``ppo_batched``), A2C and PPO-vanilla (``onpolicy_step_batched``)
-or SAC and CrossQ with a device ring (``offpolicy_batched``), ``save_<i>/``
-checkpoints of the reference's components. ``infer``: src/infer.cpp:19-106:
-load an agent, then step one env until done, episode after episode, on the
-per-env physics step.
+PPO-GAE (``ppo_batched``) and liquid PPO-GAE (``ppo_liquid_batched``), A2C
+and PPO-vanilla (``onpolicy_step_batched``) or SAC, CrossQ and liquid SAC
+with a device ring (``offpolicy_batched``), ``save_<i>/`` checkpoints of
+the reference's components. ``infer``: src/infer.cpp:19-106: load an agent,
+then step one env until done, episode after episode, on the per-env physics
+step. Both sequential loops serve every agent of the factory, the liquid
+ones too.
 
-Not ported yet: the liquid agents (ROADMAP A8), their batched trainers (A7)
-and the recording hooks (A11).
+Not ported yet: the recording hooks (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -23,16 +24,17 @@ import time
 
 import torch
 
-from ..convert import adam_tree
 from ..device import resolve
-from .checkpoint import save_component
-from .offpolicy_batched import BatchedOffPolicy, OffPolicyConfig
+from .offpolicy_batched import (
+    BatchedOffPolicy,
+    BatchedOffPolicyLiquid,
+    OffPolicyConfig,
+    OffPolicyLiquidConfig,
+)
 from .onpolicy_step_batched import BatchedStepTrainer, StepTrainerConfig
-from .ppo_batched import BatchedPpo, PpoConfig
+from .ppo_batched import BatchedPpo, PpoConfig, save_agent
+from .ppo_liquid_batched import BatchedPpoLiquid, PpoLiquidConfig
 from .profiling import StepTimer, trace
-
-# batched agents of the JAX package that the port does not train yet
-_BATCHED_LATER = ("soft_actor_critic_liquid", "ppo_gae_liquid")
 
 
 def _progress(prefix: str, i: int, total: int, t0: float) -> None:
@@ -100,8 +102,9 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
 
     ``episodes`` is read as train iterations per save (each covers
     horizon * num_envs env steps). Agents: ``ppo_gae`` / ``ppo`` (PPO-GAE,
-    ``ppo_batched.py``), ``actor_critic`` / ``ppo_vanilla``
-    (``onpolicy_step_batched.py``) and ``soft_actor_critic`` / ``cross_q``
+    ``ppo_batched.py``) and ``ppo_gae_liquid`` (``ppo_liquid_batched.py``),
+    ``actor_critic`` / ``ppo_vanilla`` (``onpolicy_step_batched.py``) and
+    ``soft_actor_critic`` / ``cross_q`` / ``soft_actor_critic_liquid``
     (device ring, ``offpolicy_batched.py``). Agent parameters and their defaults are
     the JAX package's (``evomotion_tpu/train/driver.py``); ``seed`` defaults
     to the env seed and ``horizon`` (64) is the rollout length. PPO:
@@ -109,13 +112,18 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
     ``entropy_factor`` 0.01, ``critic_loss_factor`` 0.5, ``epoch`` 8,
     ``learning_rate`` 1e-3, ``clip_grad_norm`` 0.5; each save writes the
     components ``actor``, ``critic``, ``actor_optimizer`` and
-    ``critic_optimizer``. SAC / CrossQ: ``hidden_size`` 256 (the actor's),
+    ``critic_optimizer``; liquid PPO-GAE takes the same keys but
+    ``hidden_size``, with ``neuron_number`` 64 and ``unfolding_steps`` 6,
+    and saves the same components. SAC / CrossQ: ``hidden_size`` 256 (the actor's),
     ``critic_hidden_size`` (default ``hidden_size``), ``batch_size`` 256,
     ``epoch`` 1, ``learning_rate`` 3e-4, ``gamma`` 0.99, ``tau`` 0.005,
     ``train_every`` 1, ``replay_buffer_size`` 262144 (the ring), and, beyond
     the JAX driver's keys, ``nan_guard`` (``true``/``false``, default false:
     skip an update whose losses are not finite, as the walker tool always
-    does); each save writes the agent's components. A2C / PPO-vanilla:
+    does); each save writes the agent's components. Liquid SAC: the SAC
+    keys but ``hidden_size``, ``critic_hidden_size`` and ``nan_guard``, with
+    ``neuron_number`` 64, ``unfolding_steps`` 6 and ``replay_buffer_size``
+    65536. A2C / PPO-vanilla:
     ``hidden_size`` 256, ``batch_size`` 256, ``learning_rate`` 1e-3,
     ``gamma`` 0.99, ``entropy_start_factor`` 0.01, ``entropy_end_factor``
     1e-4, ``entropy_steps`` 100000, ``epsilon`` 0.2, ``entropy_factor``
@@ -127,27 +135,19 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
     including the update; ``EVOMOTION_TRACE_DIR=<dir>`` writes one
     ``torch.profiler`` trace of iteration 10. Runs on ``device`` (default
     ``cuda``)."""
-    if agent_name in _BATCHED_LATER:
-        raise NotImplementedError(
-            f"batched training of {agent_name!r} is not ported yet (ROADMAP A7)")
-    offpolicy = agent_name in ("soft_actor_critic", "cross_q")
+    offpolicy = agent_name in ("soft_actor_critic", "cross_q", "soft_actor_critic_liquid")
     step_buffer = agent_name in ("actor_critic", "ppo_vanilla")
-    if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo")):
-        raise SystemExit(f"batched training supports ppo_gae/actor_critic/ppo_vanilla/"
-                         f"soft_actor_critic/cross_q (and, later, {'/'.join(_BATCHED_LATER)}),"
-                         f" not {agent_name}")
+    if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo", "ppo_gae_liquid")):
+        raise SystemExit("batched training supports ppo_gae/ppo_gae_liquid/actor_critic/"
+                         "ppo_vanilla/soft_actor_critic/soft_actor_critic_liquid/cross_q, "
+                         f"not {agent_name}")
     dev = resolve(device)
     # mt_parity off: the envs draw their resets from the trainer's generator
     # (a shared mt19937 table would tilt every env identically)
     env = env_factory.make(env_seed, mt_parity=False, device=dev, per_env_step=False)
     g = lambda k, d: type(d)(agent_params[k]) if k in agent_params else d  # noqa: E731
     if offpolicy:
-        guard = agent_params.get("nan_guard", "false")
-        if guard not in ("true", "false"):
-            raise ValueError(f"nan_guard={guard!r}: expected true or false")
-        cfg = OffPolicyConfig(
-            actor_hidden_size=g("hidden_size", 256),
-            critic_hidden_size=g("critic_hidden_size", g("hidden_size", 256)),
+        common = dict(
             batch_size=g("batch_size", 256),
             epoch=g("epoch", 1),
             learning_rate=g("learning_rate", 3e-4),
@@ -156,10 +156,27 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
             train_every=g("train_every", 1),
             steps_per_iter=g("horizon", 64),
             n_envs=num_envs,
-            buffer_capacity=g("replay_buffer_size", 262144),
-            nan_guard=guard == "true",
         )
-        trainer = BatchedOffPolicy(env, agent_name, cfg, seed=g("seed", env_seed))
+        if agent_name == "soft_actor_critic_liquid":
+            cfg = OffPolicyLiquidConfig(
+                neurons=g("neuron_number", 64),
+                unfolding_steps=g("unfolding_steps", 6),
+                buffer_capacity=g("replay_buffer_size", 65536),
+                **common,
+            )
+            trainer = BatchedOffPolicyLiquid(env, cfg, seed=g("seed", env_seed))
+        else:
+            guard = agent_params.get("nan_guard", "false")
+            if guard not in ("true", "false"):
+                raise ValueError(f"nan_guard={guard!r}: expected true or false")
+            cfg = OffPolicyConfig(
+                actor_hidden_size=g("hidden_size", 256),
+                critic_hidden_size=g("critic_hidden_size", g("hidden_size", 256)),
+                buffer_capacity=g("replay_buffer_size", 262144),
+                nan_guard=guard == "true",
+                **common,
+            )
+            trainer = BatchedOffPolicy(env, agent_name, cfg, seed=g("seed", env_seed))
         horizon = cfg.steps_per_iter
 
         def critic_loss(m):
@@ -192,8 +209,7 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
 
         save = trainer.save
     else:
-        cfg = PpoConfig(
-            hidden_size=g("hidden_size", 256),
+        common = dict(
             gamma=g("gamma", 0.99),
             lam=g("lambda", 0.95),
             epsilon=g("epsilon", 0.2),
@@ -205,18 +221,22 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
             horizon=g("horizon", 64),
             n_envs=num_envs,
         )
-        trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
+        if agent_name == "ppo_gae_liquid":
+            cfg = PpoLiquidConfig(
+                neurons=g("neuron_number", 64),
+                unfolding_steps=g("unfolding_steps", 6),
+                **common,
+            )
+            trainer = BatchedPpoLiquid(env, cfg, seed=g("seed", env_seed))
+        else:
+            cfg = PpoConfig(hidden_size=g("hidden_size", 256), **common)
+            trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
         horizon = cfg.horizon
 
         def critic_loss(m):
             return m.critic_loss
 
-        def save(save_dir, state):
-            save_component(save_dir, "actor", state.actor)
-            save_component(save_dir, "critic", state.critic)
-            save_component(save_dir, "actor_optimizer", adam_tree(state.actor_opt, state.actor))
-            save_component(save_dir, "critic_optimizer",
-                           adam_tree(state.critic_opt, state.critic))
+        save = save_agent
 
     timer = StepTimer() if os.environ.get("EVOMOTION_PROFILE") else None
     trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")

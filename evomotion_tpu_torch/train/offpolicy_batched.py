@@ -42,8 +42,10 @@ import numpy as np
 import torch
 
 from ..agents.cross_q import CrossQAgent
+from ..agents.liquid_agents import SoftActorCriticLiquidAgent
 from ..agents.soft_actor_critic import SoftActorCriticAgent
 from ..networks import distributions as D
+from ..networks.liquid import first_x
 from .checkpoint import load_component, save_component
 
 
@@ -93,11 +95,14 @@ class Ring(NamedTuple):
         """Writes ``block`` = (obs, action, reward, done, next_obs, valid),
         each [K, ...], at the cursor (in place; the capacity is a whole
         number of such blocks) and returns the ring with its cursor and
-        fill advanced."""
-        cap, k = self.obs.shape[0], block[0].shape[0]
-        for dst, src in zip(self[:6], block):
-            dst[self.cursor:self.cursor + k] = src
-        return self._replace(cursor=(self.cursor + k) % cap, filled=min(self.filled + k, cap))
+        fill advanced. A field that is a dict of tensors (``LiquidRing``'s
+        hidden states) takes a dict of blocks with its keys."""
+        cap, k, c = self.obs.shape[0], block[0].shape[0], self.cursor
+        for dst, src in zip(self[:-2], block):
+            pairs = ((dst[n], src[n]) for n in dst) if isinstance(dst, dict) else [(dst, src)]
+            for d, x in pairs:
+                d[c:c + k] = x
+        return self._replace(cursor=(c + k) % cap, filled=min(self.filled + k, cap))
 
     def cdf(self):
         """The cumulative sampling weights, the valid entries with the newest
@@ -203,9 +208,11 @@ class BatchedOffPolicy:
     (``reset(n_envs, generator)``, ``step(state, action, generator)``,
     ``observation_size``, ``action_size``, ``device``)."""
 
+    ALGOS = ("soft_actor_critic", "cross_q")
+
     def __init__(self, env, algo: str, config: OffPolicyConfig = OffPolicyConfig(),
                  seed: int = 1234):
-        if algo not in ("soft_actor_critic", "cross_q"):
+        if algo not in self.ALGOS:
             raise ValueError(f"unsupported off-policy algo: {algo}")
         self.env = env
         self.algo = algo
@@ -279,13 +286,17 @@ class BatchedOffPolicy:
             return timer.phase(name, block_on=dev)
 
         def train_step(state: OffPolicyTrainState, uniforms: Draws | None = None):
+            def flat(x):  # [T, N, ...] -> [T * N, ...]
+                return x.reshape((block,) + x.shape[2:])
+
             with phase("rollout"):
                 traj = self.rollout(state, None if uniforms is None else uniforms.rollout)
-                t_obs, t_act, t_rew, t_done, t_next, t_valid = (
-                    x.reshape((block,) + x.shape[2:]) for x in traj[:6])
+                t_obs, t_act, t_rew, t_done, t_next, t_valid = map(flat, traj[:6])
                 done_lens, wins = traj[6], traj[7]
+                # a liquid rollout's hidden states, {net: [T, N, n]}, follow
+                hidden = ({n: flat(x) for n, x in xs.items()} for xs in traj[8:])
                 ring = state.ring = state.ring.write(
-                    (t_obs, t_act, t_rew, t_done.float(), t_next, t_valid))
+                    (t_obs, t_act, t_rew, t_done.float(), t_next, t_valid, *hidden))
 
             losses = torch.zeros((n_updates, 4), device=dev)
             has_enough = False
@@ -390,3 +401,137 @@ class BatchedOffPolicy:
         like.iteration = int(load("iteration", np.int32(like.iteration)))
         like.ep_steps = load("ep_steps", like.ep_steps)
         return like
+
+
+# -- liquid SAC -----------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OffPolicyLiquidConfig(OffPolicyConfig):
+    neurons: int = 64  # reference key: neuron_number
+    unfolding_steps: int = 6
+    # hidden states are stored per transition (5 nets x 2 x neurons floats),
+    # so the default ring is smaller than the MLP tier's
+    buffer_capacity: int = 65536
+
+
+class LiquidRing(NamedTuple):
+    """:class:`Ring` plus the per-step LTC hidden states: the reference's
+    liquid replay buffers store the hidden state each forward pass consumed
+    and produced (replay_buffer.h:33-56, liquid_sac_memory); here that is
+    {net: [CAP, neurons]} for the five SAC nets, ``x`` at the transition's
+    obs and ``next_x`` at its next_obs."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    next_obs: torch.Tensor
+    valid: torch.Tensor
+    x: dict  # {net: [CAP, neurons]} pre-step hidden states
+    next_x: dict  # {net: [CAP, neurons]} post-step hidden states
+    cursor: int
+    filled: int
+
+    @classmethod
+    def empty(cls, capacity: int, obs_size: int, action_size: int, neurons: int, nets,
+              device) -> "LiquidRing":
+        ring = Ring.empty(capacity, obs_size, action_size, device)
+
+        def xs():
+            return {n: torch.zeros((capacity, neurons), device=device) for n in nets}
+
+        return cls(*ring[:6], x=xs(), next_x=xs(), cursor=0, filled=0)
+
+    write = Ring.write
+    cdf = Ring.cdf
+
+    def sample(self, cdf, total, u):
+        """:meth:`Ring.sample`, the batch followed by the hidden states
+        ``x`` and ``next_x`` ({net: [B, neurons]}) at the indices."""
+        idx, batch = Ring.sample(self, cdf, total, u)
+        return idx, (*batch, *({n: t[idx] for n, t in xs.items()} for xs in (self.x, self.next_x)))
+
+
+@dataclasses.dataclass
+class OffPolicyLiquidTrainState(OffPolicyTrainState):
+    xs: dict = None  # {net: [N, neurons]} live per-env hidden states
+
+
+class BatchedOffPolicyLiquid(BatchedOffPolicy):
+    """Batched ``soft_actor_critic_liquid`` (soft_actor_critic_liquid.cpp):
+    SAC over a liquid actor and twin liquid Q (+ targets), N envs in
+    lockstep, the hidden states carried through the rollout and stored in
+    the ring so that updates replay from the stored x_t (teacher forcing),
+    as the reference's LiquidReplayBuffer training path. The ring write,
+    sampling, ``has_enough`` gate, cadence and checkpoints are
+    :class:`BatchedOffPolicy`'s; the JAX liquid trainer has no full-state
+    checkpoint, and neither has this one."""
+
+    ALGOS = ("soft_actor_critic_liquid",)
+    NETS = SoftActorCriticLiquidAgent.NETS
+
+    def __init__(self, env, config: OffPolicyLiquidConfig = OffPolicyLiquidConfig(),
+                 seed: int = 1234):
+        super().__init__(env, "soft_actor_critic_liquid", config, seed)
+
+    def make_agent(self):
+        cfg, env = self.config, self.env
+        return SoftActorCriticLiquidAgent(
+            self.seed, env.observation_size, env.action_size, cfg.neurons, cfg.batch_size,
+            cfg.epoch, cfg.learning_rate, cfg.gamma, cfg.tau, cfg.unfolding_steps,
+            replay_buffer_size=1, train_every=cfg.train_every, device=env.device)
+
+    def init(self) -> OffPolicyLiquidTrainState:
+        """A fresh agent, an empty ring, first hidden states, and ``n_envs``
+        envs reset with a generator on the env's device seeded with
+        ``seed``."""
+        cfg = self.config
+        dev = self.env.device
+        gen = torch.Generator(device=dev).manual_seed(self.seed)
+        env_state, first = self.env.reset(cfg.n_envs, gen)
+        ring = LiquidRing.empty(self.capacity, self.env.observation_size, self.env.action_size,
+                                cfg.neurons, self.NETS, dev)
+        return OffPolicyLiquidTrainState(
+            agent=self.make_agent(), ring=ring, env_state=env_state, obs=first.obs,
+            prev_valid=first.valid.clone(), generator=gen, iteration=0,
+            ep_steps=torch.zeros(cfg.n_envs, dtype=torch.int32, device=dev),
+            xs={n: first_x(cfg.neurons, cfg.n_envs, dev) for n in self.NETS})
+
+    @torch.no_grad()
+    def rollout(self, state: OffPolicyLiquidTrainState, uniforms=None):
+        """:func:`rollout`'s trajectory of the agent's liquid policy,
+        followed by each step's hidden states before and after it ({net:
+        [T, N, n]}); all five chains advance with (obs, action), freeze
+        across invalid settle frames and reset at episode end. Advances the
+        state's ``xs`` in place too."""
+        agent, gen, nets = state.agent, state.generator, self.NETS
+        env_state, obs, prev_valid, ep_steps, xs = (state.env_state, state.obs,
+                                                    state.prev_valid, state.ep_steps, state.xs)
+        steps = []
+        for t in range(self.config.steps_per_iter):
+            u = None if uniforms is None else uniforms[t]
+            action, new_xs = agent.advance(xs, obs, gen, u)
+            env_state, res = self.env.step(env_state, action, gen)
+            trainable = prev_valid & res.valid
+            grown = ep_steps + res.valid.to(torch.int32)
+            ended = res.done & res.valid
+            done_len = torch.where(ended, grown, 0)
+            ep_steps = torch.where(ended, 0, grown)
+            steps.append(((obs, action, res.reward, res.done, res.obs, trainable.float(),
+                           done_len, res.win & ended), xs, new_xs))
+            validf = res.valid[:, None].float()
+            donef = res.done[:, None].float()
+            xs = {n: (1.0 - donef) * (validf * new_xs[n] + (1.0 - validf) * xs[n]) for n in nets}
+            obs, prev_valid = res.obs, res.valid
+        state.env_state, state.obs, state.prev_valid, state.ep_steps, state.xs = (
+            env_state, obs, prev_valid, ep_steps, xs)
+        out = tuple(torch.stack(x) for x in zip(*(s[0] for s in steps)))
+        return (*out, *({n: torch.stack([s[k][n] for s in steps]) for n in nets}
+                        for k in (1, 2)))
+
+    def save_full(self, folder, state):
+        raise NotImplementedError("the liquid SAC trainer has no full-state checkpoint "
+                                  "(nor has the JAX package's)")
+
+    load_full = save_full

@@ -416,6 +416,18 @@ class BatchedPpo:
         )
 
 
+def save_agent(folder: str, state) -> None:
+    """A batched PPO state's (plain or liquid) agent as the components
+    ``actor``, ``critic``, ``actor_optimizer`` and ``critic_optimizer``
+    (optax's ``chain(clip_by_global_norm, adam)`` layout), as the JAX
+    driver saves them: the sequential ``ppo_gae`` (``ppo_gae_liquid``) agent
+    loads them."""
+    save_component(folder, "actor", state.actor)
+    save_component(folder, "critic", state.critic)
+    save_component(folder, "actor_optimizer", adam_tree(state.actor_opt, state.actor))
+    save_component(folder, "critic_optimizer", adam_tree(state.critic_opt, state.critic))
+
+
 def _step(opt: torch.optim.Adam, module, loss, max_norm: float) -> None:
     opt.zero_grad(set_to_none=True)
     loss.backward()

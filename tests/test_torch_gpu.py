@@ -10,7 +10,8 @@ ragged last stage), on rows built to reach each of its forwarding cases,
 with one iteration, and with the fewest stages a plan can take;
 the launch plans' shared-memory sums and occupancy against the kernels';
 kernel #1 on the cartpoles' batched step (card against CPU) and the CLI's
-batched PPO ``train`` on the card.
+batched PPO ``train`` on the card; the liquid SAC and PPO-GAE updates on
+the card against the CPU, and the CLI's batched liquid PPO-GAE ``train``.
 
 They skip where torch sees no card. This file imports no JAX, so it also
 runs on a host where JAX is not installed: ``python -m pytest --noconftest
@@ -759,3 +760,60 @@ def test_onpolicy_update_on_card_matches_cpu(algo):
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=chip_smoke.UPDATE_TOL,
                                    err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["soft_actor_critic_liquid", "ppo_gae_liquid"])
+def test_liquid_update_on_card_matches_cpu(algo):
+    """A liquid SAC (batch 64) and a liquid PPO-GAE (3 trajectories of up to
+    40 steps, 4 epochs) update at 64 neurons and 6 unfoldings on the card
+    against the CPU from one shared state (the CPU's after a first update):
+    the losses and every tensor of the carry within chip_smoke's UPDATE_TOL
+    (a first update from the fresh init is held in chip_smoke's phase 25:
+    ROADMAP Queue C trap 11; at this batch PPO's clip edge moves no moment
+    beyond it, trap 13)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    s, a = 371, 12
+    sizes = {"soft_actor_critic_liquid": 64, "ppo_gae_liquid": (3, 40)}
+    b = 3 if algo == "ppo_gae_liquid" else 64
+    agents = [chip_smoke._liquid_agent(algo, 0, s, a, 64, 6, b, 4, d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(0)
+    batches = [chip_smoke._liquid_batch(algo, rng, s, a, sizes, agents[1]) for _ in range(2)]
+    chip_smoke._liquid_update(algo, agents[1], batches[0])
+    agents[0].load_carry_tree(agents[1].carry_tree())
+    losses = [chip_smoke._liquid_update(algo, ag, batches[1]).cpu() for ag in agents]
+    assert float((losses[0] - losses[1]).abs().max()) <= chip_smoke.UPDATE_TOL
+    got, ref = _flatten(agents[0].carry_tree()), _flatten(agents[1].carry_tree())
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=chip_smoke.UPDATE_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.gpu
+def test_cli_batched_liquid_ppo_train_on_card(tmp_path):
+    """``cli ... robot_walk ppo_gae_liquid --num_envs 64 ... train`` on the
+    card, 2 iterations (horizon 16, 2 epochs): the slim sweep launched once
+    per physics step, and a save whose components load back with finite
+    weights and the Adam count of 2 x 2 epochs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch import cli
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+
+    tsp.KERNEL.launches = 0
+    rc = cli.main(["cli", "robot_walk", "ppo_gae_liquid", "--num_envs", "64",
+                   "--agent_parameters", "horizon=16", "epoch=2", "train", str(tmp_path), "-e",
+                   "2", "-n", "1"])
+    assert rc == 0
+    settle = RobotWalkFactory({}).make(0, mt_parity=False, device="cpu",
+                                       per_env_step=False).settle_total
+    assert tsp.KERNEL.launches == settle + 2 * 16
+    with np.load(tmp_path / "save_0" / "critic_optimizer.npz") as f:
+        assert int(f["1/0/count"]) == 4
+    with np.load(tmp_path / "save_0" / "actor.npz") as f:
+        assert f["cell/w"].shape == (64, 371)
+        assert all(np.isfinite(f[k]).all() for k in f)

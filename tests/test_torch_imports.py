@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed: importing it, every module
 under it (the ``tools`` subpackage of profilers and walker tools, the
-networks, the agents, the replay buffers and the trainers too), and
+networks, the agents, the replay buffers and the trainers too, the liquid
+tier's among them), and
 chip_smoke.py
 must import neither ``jax`` nor any module of the JAX package
 ``evomotion_tpu``."""
@@ -48,7 +49,10 @@ assert {"evomotion_tpu_torch.tools.prof_kernel",
         "evomotion_tpu_torch.train.onpolicy_step_batched",
         "evomotion_tpu_torch.train.driver",
         "evomotion_tpu_torch.tools.train_offpolicy_cartpole",
-        "evomotion_tpu_torch.tools.train_walk_offpolicy"} <= set(names), names
+        "evomotion_tpu_torch.tools.train_walk_offpolicy",
+        "evomotion_tpu_torch.networks.liquid",
+        "evomotion_tpu_torch.agents.liquid_agents",
+        "evomotion_tpu_torch.train.ppo_liquid_batched"} <= set(names), names
 """
 
 

@@ -7,8 +7,8 @@ iteration, ``reset_frames=1`` and a 3-step eval horizon inside
 then a ``--resume`` (agent only, ring refilled) and a ``--resume-full``
 (exact); then ``tools.eval_walk``'s ``crossq`` and ``sac`` tiers on the
 saved actors. ``tools.train_offpolicy_cartpole`` for two iterations of its
-fixed config. On the card ``chip_smoke.py`` runs the walker's config at
-full width through the CLI.
+fixed config, CrossQ's and the liquid SAC's. On the card ``chip_smoke.py``
+runs the walker's config at full width through the CLI.
 """
 
 import csv
@@ -73,5 +73,23 @@ def test_train_offpolicy_cartpole_two_iterations(tmp_path, capsys):
     assert all(np.isfinite(float(x)) for r in rows[1:] for x in r)
     assert sorted(os.listdir(os.path.join(out, "save_final")))[:2] == [
         "actor.npz", "actor_optimizer.npz"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_offpolicy_cartpole.main([out, "soft_actor_critic_liquid", "--device", "cpu"])
+
+
+def test_train_offpolicy_cartpole_liquid_two_iterations(tmp_path):
+    """The liquid SAC branch with the JAX tool's config (32 neurons, 6
+    unfoldings, an 8,192-transition ring): two iterations, the curve, and
+    the JAX agent's ten components in ``save_final``."""
+    from evomotion_tpu_torch.agents.liquid_agents import SoftActorCriticLiquidAgent
+
+    out = str(tmp_path / "cp")
+    assert train_offpolicy_cartpole.main([out, "soft_actor_critic_liquid", "2", "--device",
+                                          "cpu"]) == 0
+    rows = _rows(os.path.join(out, "curve.csv"))
+    assert rows[0] == train_offpolicy_cartpole.CURVE_COLUMNS
+    assert [r[:2] for r in rows[1:]] == [["1", str(16 * 64)], ["2", str(2 * 16 * 64)]]
+    assert all(np.isfinite(float(x)) for r in rows[1:] for x in r)
+    save = os.path.join(out, "save_final")
+    assert sorted(os.listdir(save)) == sorted(
+        f"{c}.npz" for c in SoftActorCriticLiquidAgent.SAVE)
+    with np.load(os.path.join(save, "actor.npz")) as f:
+        assert f["cell/w"].shape == (32, 7) and f["cell/r"].shape == (32, 32)

@@ -216,13 +216,63 @@ def test_cli_batched_ppo_save_runs_on_the_sequential_agent(small, capsys, tmp_pa
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("env,agent,item", [
-    ("robot_walk", "soft_actor_critic_liquid", "A7"), ("robot_walk", "ppo_gae_liquid", "A7"),
-    ("cartpole", "ppo_gae_liquid", "A7")],
-    ids=["soft_actor_critic_liquid-A7", "ppo_vanilla-A7", "actor_critic-A7"])
-def test_cli_train_unported_batched_agents_raise(env, agent, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["cli", env, agent, "--num_envs", "2", "train", str(tmp_path)],
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.main(["cli", env, "actor_critic_liquid", "train", str(tmp_path)], device="cpu")
+LIQUID_BATCHED = [("robot_walk", "soft_actor_critic_liquid"), ("robot_walk", "ppo_gae_liquid"),
+                  ("cartpole", "ppo_gae_liquid"), ("cartpole", "soft_actor_critic_liquid")]
+
+
+@pytest.mark.parametrize("env,agent", LIQUID_BATCHED,
+                         ids=[f"{e}-{a}" for e, a in LIQUID_BATCHED])
+def test_cli_train_liquid_batched(small, env, agent, capsys, tmp_path):
+    """``cli <env> <liquid agent> --num_envs 2 ... train`` (two iterations
+    of two steps; 8 neurons, 2 unfoldings): finite progress lines, and a
+    ``save_0`` of the JAX trainer's components that the JAX agent loads
+    equal. A liquid PPO save then runs on the sequential ``ppo_gae_liquid``
+    (cartpole: one episode)."""
+    from evomotion_tpu.agents import liquid_agents as JLA
+    from evomotion_tpu.train.checkpoint import _flatten as jflatten
+    from evomotion_tpu_torch.agents import liquid_agents as PLA
+    from evomotion_tpu_torch.train.checkpoint import _flatten
+
+    out = str(tmp_path)
+    kv = ["neuron_number=8", "unfolding_steps=2", "horizon=2", "epoch=1", "batch_size=4",
+          "replay_buffer_size=16"]
+    rc = cli.main(["cli", env, agent, "--num_envs", "2", "--agent_parameters", *kv,
+                   "--env_parameters", "reset_frames=1" if env == "robot_walk" else
+                   "reset_frame_nb=2", "train", out, "-e", "2", "-n", "1"], device="cpu")
+    assert rc == 0
+    m = re.findall(r"save 0 actor=(\S+) critic=(\S+) r/step=(\S+) ([\d,]+) env-steps/s "
+                   r"\[(\d)/2\]", capsys.readouterr().out)
+    assert [x[-1] for x in m] == ["1", "2"] and all(np.isfinite(float(x[1])) for x in m)
+    save = os.path.join(out, "save_0")
+    s, a = (S, A) if env == "robot_walk" else (7, 1)
+    if agent == "soft_actor_critic_liquid":
+        port = PLA.SoftActorCriticLiquidAgent(0, s, a, 8, 4, 1, 3e-4, 0.99, 0.005, 2, 1, 1,
+                                              device="cpu")
+        j = JLA.SoftActorCriticLiquidAgent(0, s, a, 8, 4, 1, 3e-4, 0.99, 0.005, 2, 1, 1)
+        count = "0/count"
+    else:
+        args = (0, s, a, 8, 2, 0.99, 0.95, 0.2, 0.01, 0.5, 1, 2, 1, 4, 1e-3, 0.5)
+        port, j = PLA.PpoGaeLiquidAgent(*args, device="cpu"), JLA.PpoGaeLiquidAgent(*args)
+        count = "1/0/count"
+    assert sorted(os.listdir(save)) == sorted(f"{c}.npz" for c in port.SAVE)
+    port.load(save)
+    j.load(save)
+    jcarry = j._carry() if hasattr(j, "_carry") else (
+        j.actor_params, j.actor_opt_state, j.critic_params, j.critic_opt_state)
+    ref, got = _flatten(port.carry_tree()), jflatten(jcarry)
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    with np.load(os.path.join(save, "actor_optimizer.npz")) as f:
+        # SAC: an update per step once the ring holds a batch (the second
+        # iteration's two); PPO: one epoch per iteration
+        assert int(f[count]) == 2
+    if agent == "ppo_gae_liquid" and env == "cartpole":
+        seq = ["cli", "cartpole", agent, "--agent_parameters", "seed=3", "neuron_number=8",
+               "unfolding_steps=2", "gamma=0.99", "lambda=0.95", "epsilon=0.2",
+               "entropy_factor=0.01", "critic_loss_factor=0.5", "epoch=1", "batch_size=2",
+               "train_every=1", "replay_buffer_size=4", "learning_rate=1e-3",
+               "clip_grad_norm=0.5", "run", save]
+        assert cli.main(seq, device="cpu") == 0
+        assert re.match(r"^episode 0: \d+ steps, return \S+$",
+                        capsys.readouterr().out.splitlines()[-1])
