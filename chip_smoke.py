@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # on a machine with a CUDA card and nvcc
     python3 chip_smoke.py --cpu      # rehearsal on the CPU: tiny batch, plain versions
 
-Thirteen paths run, each with its kernel: the batched spider ``robot_walk``
+These paths run, each with its kernel where it has one: the batched spider ``robot_walk``
 rollout (the fused slim sweep, ``kernels/csrc/sweep_envlast_slim.cu``), in
 the canonical and in the ``scheduled`` row order (the slim sweep's groups
 mode); the CLI's sequential ``run`` (one world, the per-env physics step,
@@ -20,7 +20,11 @@ PPO-vanilla ``train`` (the slim sweep), the batched ``robot_jump`` rollout
 PPO-vanilla and PPO-GAE ``train`` then ``run`` (the fat-row sweep); the
 liquid (LTC) tier: batched liquid PPO-GAE and liquid SAC ``train`` (the
 slim sweep) and the sequential ``train`` then ``run`` of the three liquid
-agents (the fat-row sweep). Phases, each printed with its seconds:
+agents (the fat-row sweep); the colored-phase ``solver="xla"`` step and
+the strict-Bullet replay (plain PyTorch: the JAX branch reaches no
+kernel); the viewer's ``run --record/--html/--live`` and ``eval_walk
+--out``'s re-run, and the web robot builder's infer tab (``cli gui``), all
+on the fat-row sweep. Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
@@ -183,8 +187,29 @@ agents (the fat-row sweep). Phases, each printed with its seconds:
     (3 episodes, their lengths beside phase 11's random agent's): the
     fat-row sweep once per cartpole and twice per spider physics step,
     each command's first call against its plain version;
-29. the off-policy, on-policy and liquid readings lines, the kernels line
-    and the last line (one JSON object each).
+29. xla on the card: the strict replay (``tools.strict_trajectory``'s
+    env, the 30-frame reset and the first 32 artifact actions), its
+    distance from ``tests/goldens/strict_walk.npz`` printed as a reading
+    (the settle is chaotic in f32, ROADMAP trap 14) and no sweep kernel
+    launched during it (the xla branch reaches none); from replay states,
+    one card xla spider step against the CPU's within STEP_TOL, strict and
+    non-strict; a B=4 batch of xla worlds against 4 per-env calls; ms,
+    CUDA launches and device busy share per xla physics step
+    (``torch.profiler``);
+30. viewer: ``cli cartpole random run --record --html`` and one
+    ``robot_walk`` episode with ``--record`` (recordings checked, ms per
+    env step of ``run --record``), ``run --live`` on the spider serving 3
+    frames to a client thread on 127.0.0.1, and ``tools.eval_walk --out``
+    on the committed walker (4 envs, a 120-step horizon) with its re-run
+    of the best episode on one world: the fat-row sweep once per cartpole
+    and twice per spider physics step on each (counts set to 0 just
+    before, read just after), the first calls against the plain version;
+31. gui: ``cli gui --max-requests N`` with a client thread: the page, the
+    robot, builder ops, and the infer tab on the spider with a port CrossQ
+    checkpoint at the tab's default config, 3 frames polled; the fat-row
+    sweep twice per physics step;
+32. the off-policy, on-policy, liquid and xla/viewer/gui readings lines,
+    the kernels line and the last line (one JSON object each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -1413,7 +1438,7 @@ def offpolicy_update_check(args, dev, cpu, card):
                 ag.update(card_batch[:5], *card_batch[5:])
 
             ms = cuda_ms(one_update, 5)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
                     one_update()
                 torch.cuda.synchronize()
@@ -1859,7 +1884,7 @@ def onpolicy_update_check(args, dev, cpu, card):
             card_batch = [x.to(dev) for x in inputs[1]]
             reps = {"actor_critic": 10, "ppo_vanilla": 3, "ppo_gae": 2}[algo]
             ms = cuda_ms(lambda: update(agents[0], card_batch), reps)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 update(agents[0], card_batch)
                 torch.cuda.synchronize()
             events = device_events(prof)
@@ -1936,9 +1961,9 @@ def seq_command(argv, label, per_step, dev, cpu, card, fat_cap, steps):
         if not meters or not all(math.isfinite(float(v)) for v in meters.values()):
             fail(f"{label}: meters {meters}")
     else:
-        m = EPISODE_LINE.match(lines[-1] if lines else "")
-        if not m or not math.isfinite(float(m.group(3))):
-            fail(f"{label}: episode line {lines[-1:]}")
+        eps = [m for m in map(EPISODE_LINE.match, lines) if m]  # --record prints after
+        if not eps or not math.isfinite(float(eps[-1].group(3))):
+            fail(f"{label}: episode line {lines[-3:]}")
     inp, fat_cap.captured = fat_cap.inputs, []
     _, err, _ = fat_check(inp, cpu, f"{label}: first sweep call")
     episodes = [int(m.group(2)) for m in map(EPISODE_LINE.match, lines) if m]
@@ -2281,7 +2306,7 @@ def liquid_update_check(args, dev, cpu, card):
             reps = {"actor_critic_liquid": 10, "soft_actor_critic_liquid": 10,
                     "ppo_gae_liquid": 2}[algo]
             ms = cuda_ms(lambda: _liquid_update(algo, agents[0], inputs[1]), reps)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 _liquid_update(algo, agents[0], inputs[1])
                 torch.cuda.synchronize()
             events = device_events(prof)
@@ -2449,6 +2474,431 @@ def liquid_sequential(args, dev, cpu, card, fat_cap, ppo_save, random_lengths):
     done("liquid sequential", t0)
     return {"launches": total, "err": max(errs), "ms_per_physics_step": ms,
             "committed_sac_lengths": lengths, "random_lengths": random_lengths}
+
+
+# ---- the xla solver, the viewer and the builder (phases 29-31) -----------------
+
+# the strict replay on the card: the artifact's 30-frame reset, then its
+# first 32 env steps (tests/goldens/strict_walk.npz)
+XLA_REPLAY_STEPS = 32
+# replay steps from whose card state one card step is held against the CPU
+# step (the CPU's xla spider step takes ~0.3-0.5 s)
+XLA_CHECK_AT = (0, 16, 31)
+XLA_PROFILE_STEPS = 2
+# eval_walk --out in phase 30: the committed walker at 4 envs over a
+# 120-step horizon (phase 14 runs 64 over the full 1,800), then the best
+# episode's re-run on one world
+VIEWER_EVAL_ENVS, VIEWER_EVAL_HORIZON = 4, 120
+RECORDED = re.compile(r"^recorded (\d+) frames \(done=(\w+), win=(\w+)\) -> ")
+
+
+def _cat_worlds(states):
+    if isinstance(states[0], tuple):
+        return type(states[0])(*(_cat_worlds(list(xs)) for xs in zip(*states)))
+    import torch
+
+    return torch.cat(states)
+
+
+def _state_err(a, b):
+    return max(float((getattr(a, f).cpu() - getattr(b, f).cpu()).abs().max())
+               for f in ("pos", "quat", "lin_vel", "ang_vel"))
+
+
+def xla_on_card(args, dev, cpu, card):
+    """Phase 29, the colored-phase ``solver="xla"`` step (plain PyTorch, no
+    hand-written kernel: its groups of rows are a dozen small ops each).
+    The strict replay: ``tools.strict_trajectory``'s env (robot_walk, 30
+    reset frames, the mt19937 stream, strict Bullet, xla) reset and stepped
+    with the artifact's first 32 actions; its distance from
+    ``tests/goldens/strict_walk.npz`` is printed as a reading (the settle is
+    chaotic in f32: JAX's own two programs part by ~0.4, ROADMAP trap 14).
+    Gates: the replay finite, with no sweep kernel launched (counts set to 0
+    just before, read just after); from the card's replay states at
+    XLA_CHECK_AT, one card physics step against the CPU's within STEP_TOL,
+    strict and, from the last state, non-strict; a B=4 batch of xla worlds
+    (the batched call) against 4 per-env calls on the card. ms, CUDA
+    launches and device busy share per xla physics step from
+    ``torch.profiler`` over XLA_PROFILE_STEPS steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from evomotion_tpu_torch.envs.base import pick
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.kernels import sweep_envlast as se
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+    from evomotion_tpu_torch.physics.batched import BatchedStep
+    from evomotion_tpu_torch.physics.perenv import PerEnvStep
+    from evomotion_tpu_torch.tools import strict_trajectory as stool
+    from evomotion_tpu_torch.tools._profile import device_events
+
+    t0 = phase("xla on the card")
+    n = 2 if cpu else XLA_REPLAY_STEPS
+    env = stool.strict_env(dev)
+    actions = torch.as_tensor(np.load(stool.ACTIONS)[:n], device=dev)
+    kernels = (sp.KERNEL, sf.KERNEL, se.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    ts = time.perf_counter()
+    state, _ = env.reset(1)
+    states, pos, rew = [state], [], []
+    for t in range(n):
+        state, res = env.step(state, actions[t][None])
+        states.append(state)
+        pos.append(state.physics.pos[0])
+        rew.append(res.reward[0])
+    pos = torch.stack(pos).cpu().numpy()
+    rew = torch.stack(rew).cpu().numpy()
+    wall = time.perf_counter() - ts
+    n_phys = env.settle_total + n
+    launched = [k.launches for k in kernels]
+    if any(launched):
+        fail(f"strict replay on the xla step launched sweep kernels: {launched}")
+    err_pos, err_rew, first = stool.compare(pos, rew)
+    print(f"strict replay: reset ({env.settle_total} physics steps) + {n} artifact steps, "
+          f"{wall:.2f} s, {wall / n_phys * 1e3:.1f} ms per xla physics step incl. env logic "
+          f"(host clock), sweep kernel launches {launched} [{card}]", flush=True)
+    print(f"strict replay vs the artifact (a reading, the settle is chaotic in f32): max "
+          f"|pos| {err_pos:.3e}, max |reward| {err_rew:.3e}, first step over {stool.TOL:g}: "
+          f"{first}", flush=True)
+    if not (np.isfinite(pos).all() and np.isfinite(rew).all()):
+        fail("strict replay: non-finite state or reward")
+
+    # card step against the CPU step from shared states
+    host = PerEnvStep(env.model, env.physics_step.dt, device="cpu")
+    model_ns = dataclasses.replace(env.model, strict_bullet=False)
+    host_ns = PerEnvStep(model_ns, env.physics_step.dt, device="cpu")
+    card_ns = PerEnvStep(model_ns, env.physics_step.dt, device=dev)
+    on = torch.ones((1, env.model.n_slider), dtype=torch.bool, device=dev)
+    errs = {}
+    checks = [(f"strict, replay step {i}", env.physics_step, host, i)
+              for i in XLA_CHECK_AT if i < n] + [("non-strict", card_ns, host_ns, n - 1)]
+    for label, card_step, host_step, i in checks:
+        phys = states[i].physics
+        tgt = actions[i][None] * env._speed
+        got, _ = card_step(phys, tgt, on)
+        ref, _ = host_step(type(phys)(*(x.cpu() for x in phys)), tgt.cpu(), on.cpu())
+        errs[label] = _state_err(got, ref)
+        print(f"xla spider step, {label}: max |card - cpu| {errs[label]:.3e} "
+              f"(tol {STEP_TOL:g})", flush=True)
+        if not errs[label] <= STEP_TOL:
+            fail(f"xla card step disagrees with the CPU step ({label}): {errs[label]}")
+
+    # a batch of 4 xla worlds (the batched call) against 4 per-env calls
+    picks = [states[n - k].physics for k in range(4)]
+    batch = _cat_worlds(picks)
+    tgt4 = torch.cat([actions[n - 1 - k][None] for k in range(4)]) * env._speed
+    on4 = torch.ones((4, env.model.n_slider), dtype=torch.bool, device=dev)
+    both, _ = BatchedStep(env.model, env.physics_step.dt, device=dev)(batch, tgt4, on4)
+    batch_err = 0.0
+    for k in range(4):
+        one, _ = env.physics_step(picks[k], tgt4[k:k + 1], on4[k:k + 1])
+        batch_err = max(batch_err, _state_err(one, pick(both, k)))
+    print(f"xla B=4 batched call vs 4 per-env calls on the card: max |diff| {batch_err:.3e} "
+          f"(tol {STEP_TOL:g})", flush=True)
+    if not batch_err <= STEP_TOL:
+        fail(f"xla batched call disagrees with the per-env calls: {batch_err}")
+
+    # ms, launches and device busy per xla physics step
+    phys, tgt = states[-1].physics, actions[n - 1][None] * env._speed
+    reading = {}
+    if not cpu:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(XLA_PROFILE_STEPS):
+            phys, _ = env.physics_step(phys, tgt, on)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - ts) / XLA_PROFILE_STEPS * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            for _ in range(XLA_PROFILE_STEPS):
+                phys, _ = env.physics_step(phys, tgt, on)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - ts
+        events = device_events(prof)
+        busy = sum(us for _, us in events) / 1e3
+        launches = len(events) / XLA_PROFILE_STEPS
+        push, full = env.physics_step.solve_push, env.physics_step.solve_full
+        reading = {"step_ms": step_ms, "launches_per_step": launches,
+                   "device_busy": busy / (prof_wall * 1e3),
+                   "device_ms_per_step": busy / XLA_PROFILE_STEPS,
+                   "groups_per_step": push.n_groups + full.n_groups}
+        print(f"xla spider physics step (strict, B=1) [{card}]: {step_ms:.1f} ms (host clock, "
+              f"synchronised), {launches:.0f} CUDA launches, device busy "
+              f"{100 * reading['device_busy']:.1f}% ({reading['device_ms_per_step']:.2f} ms "
+              f"per step, profiler on), {reading['groups_per_step']} Gauss-Seidel groups",
+              flush=True)
+    done("xla on the card", t0)
+    return {"replay_max_pos_err": err_pos, "replay_max_reward_err": err_rew,
+            "replay_first_over_tol": first, "replay_ms_per_physics_step": wall / n_phys * 1e3,
+            "card_vs_cpu": errs, "batch_err": batch_err, **reading}
+
+
+def _serve_with_client(argv, dev, client):
+    """``cli.main(argv)`` (a server) with ``client`` in a thread; returns
+    what the client stored."""
+    import threading
+
+    from evomotion_tpu_torch import cli
+
+    got = {}
+
+    def run():
+        try:
+            client(got)
+        except Exception as e:  # noqa: BLE001 - reported below
+            got["error"] = repr(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device=dev)
+    t.join(timeout=120)
+    if rc != 0 or t.is_alive() or "error" in got:
+        fail(f"{argv[:2]}: server returned {rc}, client {got.get('error', 'hung')}")
+    return got
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _get(url, data=None):
+    """GET (or POST ``data``) ``url`` on 127.0.0.1, retrying while the
+    server comes up."""
+    import urllib.request
+
+    t0 = time.time()
+    while True:
+        try:
+            req = urllib.request.Request(url, data=data, method="POST" if data else "GET")
+            return urllib.request.urlopen(req, timeout=120).read()
+        except OSError:
+            if time.time() - t0 > 60:
+                raise
+            time.sleep(0.2)
+
+
+def viewer_paths(args, dev, cpu, card, fat_cap, cap):
+    """Phase 30, the viewer: ``cli cartpole random run --record x.npz --html
+    x.html`` (1 episode) and one ``robot_walk`` episode with ``--record``
+    (through :func:`seq_command`: the fat-row sweep once per cartpole and
+    twice per spider physics step, the first call against its plain
+    version); ``run --live`` on the spider served for 3 frames to a client
+    thread on 127.0.0.1 (the sweep counted the same way); ``tools.eval_walk
+    --out`` on the committed walker (VIEWER_EVAL_ENVS envs over a
+    VIEWER_EVAL_HORIZON-step horizon: the slim sweep once per physics step
+    of its batched eval), whose re-run of the best episode on one world
+    launches the fat-row sweep twice per physics step (counts set to 0 just
+    before the eval and the re-run, read just after each)."""
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.kernels import sweep as sp
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+    from evomotion_tpu_torch.tools import eval_walk as ew
+    from evomotion_tpu_torch.viewer import live
+
+    t0 = phase("viewer")
+    out, total, errs = {}, 0, []
+    walk_env = (["--env_parameters", "reset_frames=1", "initial_remaining_seconds=0.05"]
+                if cpu else [])
+    with perenv_steps() as steps, tempfile.TemporaryDirectory() as tmp:
+        npz, html = os.path.join(tmp, "x.npz"), os.path.join(tmp, "x.html")
+        r = seq_command(["cli", "cartpole", "random", "--env_seed", str(args.seed), "run", tmp,
+                         "--episodes", "1", "--record", npz, "--html", html],
+                        "cartpole run --record --html", 1, dev, cpu, card, fat_cap, steps)
+        with np.load(npz) as rec:
+            shapes = (rec["pos"].shape, rec["quat"].shape)
+        page = open(html).read()
+        if shapes[0] != (r["episode_steps"][0], 3, 3) or "FRAMES_POS" not in page:
+            fail(f"cartpole recording: {shapes}, {r['episode_steps']}, html {len(page)} B")
+        total += r["launches"]
+        errs.append(r["err"])
+        walk_npz = os.path.join(tmp, "walk.npz")
+        r = seq_command(["cli", "robot_walk", "random", "--env_seed", str(args.seed), *walk_env,
+                         "run", tmp, "--episodes", "1", "--record", walk_npz],
+                        "robot_walk run --record", 2, dev, cpu, card, fat_cap, steps)
+        with np.load(walk_npz) as rec:
+            if rec["pos"].shape != (r["episode_steps"][0], 42, 3) or not np.isfinite(
+                    rec["pos"]).all():
+                fail(f"robot_walk recording: {rec['pos'].shape}")
+        total += r["launches"]
+        errs.append(r["err"])
+        out["record_ms_per_env_step"] = r["s"] / r["episode_steps"][0] * 1e3
+        print(f"robot_walk run --record: {out['record_ms_per_env_step']:.2f} ms per env step "
+              f"({r['episode_steps'][0]} env steps, {r['physics_steps']} physics steps incl. "
+              f"the reset, host clock) [{card}]", flush=True)
+
+        # --live: 3 frames to a client thread
+        port = _free_port()
+        serve = live.serve_live
+        live.serve_live = lambda *a, **kw: serve(*a, **kw, max_frames=3)
+
+        def client(got):
+            got["page"] = _get(f"http://127.0.0.1:{port}/").decode()
+            got["frames"] = [json.loads(_get(f"http://127.0.0.1:{port}/state"))
+                             for _ in range(3)]
+
+        sf.KERNEL.launches = steps[0] = 0
+        ts = time.perf_counter()
+        try:
+            got = _serve_with_client(["cli", "robot_walk", "random", "--env_seed",
+                                      str(args.seed), *walk_env, "run", tmp, "--live",
+                                      "--port", str(port)], dev, client)
+        finally:
+            live.serve_live = serve
+        if not cpu:
+            torch.cuda.synchronize()
+        n_phys, launches = steps[0], sf.KERNEL.launches
+        frames = got["frames"]
+        print(f"run --live: 3 frames served on 127.0.0.1 ({time.perf_counter() - ts:.2f} s incl. "
+              f"the reset), steps {[f['step'] for f in frames]}, {n_phys} physics steps, "
+              f"fat sweep launches {launches}", flush=True)
+        if (len(frames) != 3 or "drawGround" not in got["page"]
+                or np.asarray(frames[-1]["pos"]).shape != (42, 3)
+                or not np.isfinite(np.asarray(frames[-1]["pos"])).all()):
+            fail("run --live: bad frames")
+        if not cpu and launches != 2 * n_phys:
+            fail(f"run --live: {launches} fat sweep launches in {n_phys} physics steps")
+        total += launches
+        out["live_launches"] = launches
+
+        # eval_walk --out: the re-run of the best episode on the per-env step
+        best = os.path.join(tmp, "best")
+        saved, rec_ep = ew.WIN, ew.record_episode
+        horizon = 3 if cpu else VIEWER_EVAL_HORIZON
+        ew.WIN = horizon
+        counts = {}
+
+        def counted(*a, **kw):
+            if not cpu:
+                torch.cuda.synchronize()
+            counts.update(slim_launches=sp.KERNEL.launches, slim_calls=cap.calls)
+            sf.KERNEL.launches = steps[0] = 0
+            fat_cap.calls = 0
+            res = rec_ep(*a, **kw)
+            if not cpu:
+                torch.cuda.synchronize()
+            counts.update(launches=sf.KERNEL.launches, calls=fat_cap.calls, steps=steps[0])
+            return res
+
+        ew.record_episode = counted
+        buf = io.StringIO()
+        sp.KERNEL.launches = cap.calls = 0
+        ts = time.perf_counter()
+        try:
+            with small_walker(cpu), contextlib.redirect_stdout(buf):
+                rc = ew.main(["ppo", ew.WALKER_DIR, "--episodes",
+                              str(2 if cpu else VIEWER_EVAL_ENVS), "--seed", str(WALKER_SEED),
+                              "--out", best], device=dev)
+        finally:
+            ew.WIN, ew.record_episode = saved, rec_ep
+        wall = time.perf_counter() - ts
+        lines = buf.getvalue().splitlines()
+        m = RECORDED.match(lines[-1]) if lines else None
+        print(f"eval_walk --out: {lines[-1] if lines else '(no output)'} ({wall:.2f} s)",
+              flush=True)
+        if rc != 0 or not m:
+            fail(f"eval_walk --out returned {rc}")
+        with np.load(best + ".npz") as rec:
+            if rec["pos"].shape != (int(m.group(1)), 42, 3):
+                fail(f"eval_walk --out recording {rec['pos'].shape}")
+        if "FRAMES_POS" not in open(best + ".html").read():
+            fail("eval_walk --out: no viewer page")
+        want = (2 if cpu else 60) + horizon  # physics steps of the batched eval: settle + steps
+        print(f"eval_walk --out: batched eval {want} physics steps, slim sweep calls "
+              f"{counts['slim_calls']}, kernel launches {counts['slim_launches']}; re-run "
+              f"{counts['steps']} physics steps, fat sweep calls {counts['calls']}, kernel "
+              f"launches {counts['launches']}", flush=True)
+        if counts["slim_calls"] != want or (not cpu and counts["slim_launches"] != want):
+            fail(f"eval_walk --out: expected {want} slim sweep launches, got {counts}")
+        if counts["calls"] != 2 * counts["steps"] or (not cpu and counts["launches"] !=
+                                                      counts["calls"]):
+            fail(f"eval_walk --out re-run: expected 2 fat sweep launches per physics step, "
+                 f"got {counts}")
+        total += counts["launches"]
+        out["eval_out_launches"] = counts["launches"]
+        out["eval_out_slim_launches"] = counts["slim_launches"]
+        out["eval_out_frames"] = int(m.group(1))
+    done("viewer", t0)
+    return {"launches": total, "err": max(errs), **out}
+
+
+def gui_path(args, dev, cpu, card):
+    """Phase 31, ``cli gui --max-requests N``: a client thread GETs the page
+    and the robot, POSTs builder ops (load the spider, move a member, a ray
+    cast, add a member, save) and starts the infer tab on the spider with a
+    port CrossQ checkpoint at the tab's default config (actor 256, critics
+    1,024, batch 128; the env's per-env step, the fat-row sweep twice per
+    physics step), polls 3 frames and stops it. The fat-row sweep's counts
+    are set to 0 just before and read just after."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evomotion_tpu_torch.agents.cross_q import CrossQAgent
+    from evomotion_tpu_torch.envs.robot import DEFAULT_SKELETON
+    from evomotion_tpu_torch.kernels import sweep_fat as sf
+
+    t0 = phase("gui")
+    with perenv_steps() as steps, tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(DEFAULT_SKELETON, os.path.join(tmp, "spider.json"))
+        agent = CrossQAgent(12345, 371, 12, 256, 1024, 128, 1, 3e-4, 0.99, 1, 2, device=dev)
+        os.makedirs(os.path.join(tmp, "ckpt"))
+        agent.save(os.path.join(tmp, "ckpt"))
+        del agent
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        env_params = {"reset_frames": "1", "initial_remaining_seconds": "0.05"} if cpu else {}
+        ops = [
+            {"op": "load_robot", "args": {"path": "spider.json"}},
+            {"op": "update_member", "args": {"name": "body_legA", "pos": [1.2, 0.5, 0.3]}},
+            {"op": "ray_cast_member", "args": {"from": [0, 0.3, -5], "to": [0, 0.3, 5]}},
+            {"op": "save_robot", "args": {"path": "edited.json"}},
+            {"op": "infer_start", "args": {"agent_dir": "ckpt", "robot_path": "spider.json",
+                                           "env_params": env_params}},
+            {"op": "infer_state"}, {"op": "infer_state"}, {"op": "infer_state"},
+            {"op": "infer_stop"},
+        ]
+
+        def client(got):
+            got["page"] = _get(base + "/").decode()
+            got["robot"] = json.loads(_get(base + "/robot"))
+            got["replies"] = [json.loads(_get(base + "/api", json.dumps(op).encode()))
+                              for op in ops]
+
+        sf.KERNEL.launches = steps[0] = 0
+        ts = time.perf_counter()
+        got = _serve_with_client(["gui", "--port", str(port), "--max-requests",
+                                  str(2 + len(ops)), "--workspace", tmp], dev, client)
+        if not cpu:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        n_phys, launches = steps[0], sf.KERNEL.launches
+    replies = got["replies"]
+    frames = [r for r in replies if "pos" in r]
+    print(f"gui: page {len(got['page'])} B, robot {len(got['robot']['members'])} members; "
+          f"replies {[r.get('ok') for r in replies]}; infer tab {len(frames)} frames, "
+          f"{n_phys} physics steps, fat sweep launches {launches}; {wall:.2f} s [{card}]",
+          flush=True)
+    if (not all(r.get("ok") for r in replies) or len(frames) != 3
+            or "robot builder" not in got["page"]
+            or not all(np.isfinite(np.asarray(f["pos"])).all() for f in frames)):
+        fail(f"gui: {replies}")
+    if n_phys < 1 or (not cpu and launches != 2 * n_phys):
+        fail(f"gui infer tab: {launches} fat sweep launches in {n_phys} physics steps")
+    done("gui", t0)
+    return {"launches": launches, "physics_steps": n_phys, "s": wall}
 
 
 def main(argv=None):
@@ -2647,8 +3097,11 @@ def main(argv=None):
                                                               "soft_actor_critic_liquid")}
         liq_seq = liquid_sequential(args, dev, cpu, card, fat_cap, liq_save,
                                     seq["lengths"]["cartpole"])
+    xla = xla_on_card(args, dev, cpu, card)
+    view = viewer_paths(args, dev, cpu, card, fat_cap, cap)
+    gui = gui_path(args, dev, cpu, card)
 
-    # ---- 29. readings lines, kernels line and last line ----
+    # ---- 32. readings lines, kernels line and last line ----
     print(json.dumps({"offpolicy": {
         "update_check": off_update,
         "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
@@ -2662,6 +3115,7 @@ def main(argv=None):
         "train": {k: {x: v[x] for x in ("ms", "rate", "launches", "updates_done", "ring_bytes",
                                        "grad_rate") if x in v} for k, v in liq_train.items()},
         "sequential": liq_seq}}), flush=True)
+    print(json.dumps({"xla": xla, "viewer": view, "gui": gui}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -2673,7 +3127,8 @@ def main(argv=None):
                      + train["launches"] + sum(t["launches"] for t in off_train.values())
                      + jump["batched"]["launches"]
                      + sum(t["launches"] for t in on_train.values())
-                     + sum(t["launches"] for t in liq_train.values())),
+                     + sum(t["launches"] for t in liq_train.values())
+                     + view["eval_out_slim_launches"]),
         "launches_by_path": {"batched canonical": main_run["launches"],
                              "batched scheduled": sched_run["launches"],
                              "walker eval": walker["launches"],
@@ -2681,7 +3136,8 @@ def main(argv=None):
                              **{f"{k} train": t["launches"] for k, t in off_train.items()},
                              "robot_jump batched": jump["batched"]["launches"],
                              **{f"{k} train": t["launches"] for k, t in on_train.items()},
-                             **{f"{k} train": t["launches"] for k, t in liq_train.items()}},
+                             **{f"{k} train": t["launches"] for k, t in liq_train.items()},
+                             "eval_walk --out eval": view["eval_out_slim_launches"]},
         "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"],
                            *(t["err"] for t in off_train.values()), jump["kernel_err"],
                            *(t["err"] for t in on_train.values()),
@@ -2703,14 +3159,19 @@ def main(argv=None):
         "replaces": FAT_REPLACES,
         "tpu_kernel": FAT_TPU_KERNEL,
         "launches": (seq["launches"] + off_seq["launches"] + jump["run"]["launches"]
-                     + on_seq["launches"] + liq_seq["launches"]),
+                     + on_seq["launches"] + liq_seq["launches"] + view["launches"]
+                     + gui["launches"]),
         "launches_by_path": {"sequential run": seq["launches"],
                              "offpolicy sequential train and run": off_seq["launches"],
                              "robot_jump run": jump["run"]["launches"],
                              "onpolicy sequential train and run": on_seq["launches"],
-                             "liquid sequential train and run": liq_seq["launches"]},
+                             "liquid sequential train and run": liq_seq["launches"],
+                             "viewer: run --record/--live, eval_walk --out re-run":
+                                 view["launches"],
+                             "gui infer tab": gui["launches"]},
         "max_abs_err": max(*fat["errs"].values(), *seq["errs"].values(), sched_fat_err,
-                           off_seq["err"], jump["run"]["err"], on_seq["err"], liq_seq["err"]),
+                           off_seq["err"], jump["run"]["err"], on_seq["err"], liq_seq["err"],
+                           view["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": fat["times"].get("ms"),

@@ -16,10 +16,14 @@ PPO-GAE (``train.ppo_liquid_batched``) and liquid SAC
 (``train.offpolicy_batched``); the sequential agents A2C, PPO-vanilla,
 PPO-GAE, SAC, CrossQ and the three liquid agents (``agents``, with their
 replay buffers in ``buffers.replay``) through ``train --num_envs 1`` then
-``run``; and the greedy evaluation of a checkpoint, the committed walker's
-copy in ``resources/walker_r5e_s42`` among them (``tools.eval_walk``). The
-networks (``networks``) are PyTorch modules; the sequential-impulse sweeps
-are hand-written CUDA kernels (``kernels/csrc``). Still raising, naming
-its ROADMAP item: the viewer (A11). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+``run``; the greedy evaluation of a checkpoint, the committed walker's
+copy in ``resources/walker_r5e_s42`` among them (``tools.eval_walk``, with
+``--out`` recording the best episode); the colored-phase ``solver="xla"``
+physics step (``physics.phases``) and the replay of the strict-Bullet
+artifact on it (``tools.strict_trajectory``); the viewer (``viewer``: ``run
+--record/--html/--live``), the web robot builder (``builder``, ``cli gui``)
+and the legacy skeleton converter (``serialize.legacy``). The networks
+(``networks``) are PyTorch modules; the sequential-impulse sweeps are
+hand-written CUDA kernels (``kernels/csrc``). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """

@@ -16,10 +16,16 @@ on the card), and so are ``train --num_envs N`` with N > 1 for ``ppo_gae``,
 (``--num_envs 1``, ``train.driver.train``) for every learning agent of the
 reference (those and ``actor_critic_liquid``); ``run`` then loads the
 trained agent, a ``ppo_gae`` or ``ppo_gae_liquid`` checkpoint of the
-batched tier too. ``gui`` and run's viewer options (--record, --html,
---live) parse but raise NotImplementedError naming their ROADMAP item
-(A11). --cuda and --env_num_threads are accepted for surface parity and
-ignored.
+batched tier too. ``run --record x.npz`` records the body poses and
+``--html x.html`` (with ``--record``) writes the self-playing viewer;
+``run --live`` serves the live viewer at ``--port`` (``viewer.live``);
+``gui`` serves the web robot builder (``builder.web_editor``), whose infer
+tab runs the port's envs and agents on the card. --cuda and
+--env_num_threads are accepted for surface parity and ignored.
+
+    python -m evomotion_tpu_torch.cli cli cartpole random run <dir> --record x.npz --html x.html
+    python -m evomotion_tpu_torch.cli cli robot_walk random run <dir> --live --port 8800
+    python -m evomotion_tpu_torch.cli gui [--port 8801] [--robot r.json] [--workspace dir]
 """
 
 from __future__ import annotations
@@ -96,7 +102,17 @@ def main(argv=None, device=None):
     agent_kv, env_kv, rest = _extract_kv_flags(list(argv))
     args = build_parser().parse_args(rest)
     if args.mode == "gui":
-        raise NotImplementedError("gui (the web robot builder) is not ported yet (ROADMAP A11)")
+        # reference `evo_motion gui` (src/gui.cpp): the web editor over the
+        # builder environment; its infer tab runs on ``device``
+        from .builder.builder_env import RobotBuilderEnvironment
+        from .builder.web_editor import serve_editor
+
+        builder = RobotBuilderEnvironment()
+        if args.robot:
+            builder.load_robot(args.robot)
+        serve_editor(builder, port=args.port, max_requests=args.max_requests,
+                     workspace=args.workspace, device=device)
+        return 0
 
     from .agents.factory import get_agent_factory
     from .envs.registry import get_environment_factory
@@ -112,11 +128,28 @@ def main(argv=None, device=None):
                                  agent_name=args.agent_name, device=device)
         return train(args.env_seed, agent_factory, env_factory, args.episodes, args.nb_saves,
                      args.output_path, device=device)
-    if args.live or args.html:
-        raise NotImplementedError("run --live / --html are not ported yet (ROADMAP A11)")
+    if args.live:
+        from .device import resolve
+        from .viewer.live import serve_live
 
-    return infer(args.env_seed, agent_factory, env_factory, args.input_path,
-                 episodes=args.episodes, record_path=args.record, device=device)
+        dev = resolve(device)
+        env = env_factory.make(args.env_seed, device=dev)
+        agent = agent_factory.create_agent(env.observation_size, env.action_size, device=dev)
+        agent.load(args.input_path)
+        agent.set_eval(True)
+        serve_live(env, agent, port=args.port, env_seed=args.env_seed)
+        return 0
+
+    rc = infer(args.env_seed, agent_factory, env_factory, args.input_path,
+               episodes=args.episodes, record_path=args.record, device=device)
+    if args.html and args.record:
+        from .viewer.html_viewer import write_playback_html
+
+        env = env_factory.make(args.env_seed, device=device)
+        root = getattr(getattr(env, "meta", None), "root_body", 0)
+        write_playback_html(args.record, args.html, env.model, root)
+        print(f"viewer written to {args.html}")
+    return rc
 
 
 if __name__ == "__main__":

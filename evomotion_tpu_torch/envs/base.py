@@ -55,6 +55,13 @@ def where(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+def pick(x, i: int):
+    """Env ``i`` of (nested) NamedTuples of tensors, as a batch of one."""
+    if isinstance(x, tuple):
+        return type(x)(*(pick(y, i) for y in x))
+    return x[i:i + 1]
+
+
 def draws(table, reset_idx, n: int, generator, device):
     """``n`` U(0,1) draws per env for a reset: rows of the mt19937 reset
     table at ``reset_idx`` (wrapping) when the env has one, else from the

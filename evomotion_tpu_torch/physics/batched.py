@@ -1153,16 +1153,28 @@ class BatchedStep:
     """Batch-first physics step: the counterpart of the JAX custom_vmap rule
     (``vmapped_step``). Moves the env axis last, runs :func:`step_envlast`
     and moves it back. Unlike the JAX path it needs no padding to a kernel
-    tile: the CUDA sweep takes any batch size.
+    tile: the CUDA sweep takes any batch size. A ``solver="xla"`` model
+    runs the per-env step with the colored-phase solves of :mod:`.phases`
+    instead, as JAX's vmap batches that branch op by op (dense member
+    narrowphase, no top-M cull).
 
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the CPU (the
     sweep then runs its plain version)."""
 
     def __init__(self, model: PhysicsModel, dt: float, device=None):
+        if model.solver not in ("pallas", "xla"):
+            raise ValueError(f"solver={model.solver!r}: 'pallas' or 'xla'")
         self.model = model
         self.dt = float(dt)
         self.device = resolve(device)
         self.statics = Statics(model, self.device)
+        # solver="xla" has no batched rule in JAX: a vmapped call batches the
+        # per-env code, so a batch runs the per-env step with the phase solves
+        self.solve_push = self.solve_full = None
+        if model.solver == "xla":
+            from .phases import phase_solvers
+
+            self.solve_push, self.solve_full = phase_solvers(model, self.statics, self.device)
 
     def __call__(self, state: E.PhysicsState, motor_target, motor_enabled):
         """state: PhysicsState with env axis first; motor_target [B, NS] f32,
@@ -1183,4 +1195,9 @@ class BatchedStep:
         )
 
     def _run(self, *state_envlast):
+        if self.solve_full is not None:
+            from .perenv import step_perenv
+
+            return step_perenv(self.model, self.statics, self.solve_push, self.solve_full,
+                               self.dt, *state_envlast)
         return step_envlast(self.model, self.statics, self.dt, *state_envlast)

@@ -8,7 +8,8 @@ visit order), and
 :func:`physics_step`, which steps one world with the per-env step
 (:mod:`.perenv`, the fat-row sweep) and a batch of worlds with the batched
 step (:mod:`.batched`, the slim fused sweep), as the JAX function's
-custom_vmap rule does.
+custom_vmap rule does; a ``solver="xla"`` model takes the colored-phase
+solves of :mod:`.phases` either way.
 
 Reference hot path: ``Environment::do_step`` -> ``btDiscreteDynamicsWorldMt::
 stepSimulation`` (evo_motion_model/src/environment.cpp:33-43).
@@ -63,11 +64,13 @@ class StepDiagnostics(NamedTuple):
 
 
 def default_solver() -> str:
-    """The velocity-solver backend the envs build their models with.
-
-    The port has one: the fused sequential sweep (``"pallas"`` in the JAX
-    package's naming), a CUDA kernel on the card and its plain version on
-    the CPU. The JAX package's colored-phase ``"xla"`` loop is not ported."""
+    """The velocity-solver backend the envs build their models with:
+    ``"pallas"``, the fused sequential sweep, a CUDA kernel on the card and
+    its plain version on the CPU (the JAX package's choice on its
+    accelerator). The colored-phase ``"xla"`` branch (:mod:`.phases`, the
+    JAX package's default off the TPU and the solver of the strict-Bullet
+    artifact) is selected explicitly through ``model.solver``, e.g.
+    ``env.model = dataclasses.replace(env.model, solver="xla")``."""
     return "pallas"
 
 
@@ -520,7 +523,9 @@ def physics_step(model: PhysicsModel, state: PhysicsState, motor_target, motor_e
     split-impulse push pass and the velocity sweep), dense member
     narrowphase. A batch (a leading env axis on every field) runs the
     batched step: slim rows and one call of the fused sweep, as the JAX
-    function's custom_vmap rule routes a vmapped call. Both run on the
+    function's custom_vmap rule routes a vmapped call. A ``solver="xla"``
+    model runs the per-env step with the colored-phase solves in both
+    cases, as JAX's vmap of that branch does. Both run on the
     device the state lies on. Each call builds its step object: a caller
     that steps one model many times builds :class:`.perenv.PerEnvStep` or
     :class:`.batched.BatchedStep` once and calls it, as the envs do."""

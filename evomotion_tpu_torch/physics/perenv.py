@@ -1,6 +1,7 @@
-"""The per-env physics step in PyTorch: the port of the ``solver="pallas"``
-branch of ``_physics_step_impl`` and of ``_finish_step`` in
-``evomotion_tpu/physics/engine.py`` (:1471-1878, :2030-2104).
+"""The per-env physics step in PyTorch: the port of ``_physics_step_impl``
+and of ``_finish_step`` in ``evomotion_tpu/physics/engine.py`` (:1471-2104),
+its ``solver="pallas"`` branch here and the solves of its ``"xla"`` branch
+in :mod:`.phases`.
 
 This is the step the sequential tier runs: the CLI's ``run`` path steps one
 world at a time. It differs from the batched step (:mod:`.batched`) where
@@ -192,13 +193,15 @@ def _member_contact_rows(model, st, pos, quat, lin_vel, ang_vel, iinv_world, dt,
     return normal, friction, push, extras
 
 
-def step_perenv(model: PhysicsModel, st: bt.Statics, solve_push: FatSolver | None,
-                solve_full: FatSolver, dt: float, pos, quat, lin_vel, ang_vel,
-                contact_lambda, contact_vid, joint_lambda, dyn_lambda, dyn_vid,
-                motor_target, motor_enabled):
+def step_perenv(model: PhysicsModel, st: bt.Statics, solve_push, solve_full, dt: float, pos,
+                quat, lin_vel, ang_vel, contact_lambda, contact_vid, joint_lambda, dyn_lambda,
+                dyn_vid, motor_target, motor_enabled):
     """One substep of B independent worlds, each as the JAX per-env step
     computes it, env axis last everywhere (shapes as :func:`.batched.step_envlast`).
-    Returns the same tuple as :func:`.batched.step_envlast`."""
+    ``solve_push`` (None without contact pairs) and ``solve_full`` are the
+    two solves: :class:`FatSolver` (``"pallas"``) or
+    :class:`.phases.PhaseSolver` (``"xla"``). Returns the same tuple as
+    :func:`.batched.step_envlast`."""
     b = pos.shape[-1]
     dev = pos.device
     k = MAX_CONTACTS_PER_PAIR
@@ -292,25 +295,24 @@ class PerEnvStep(bt.BatchedStep):
     motor_enabled)`` on a leading env axis, each world stepped as the JAX
     per-env function steps it (B = 1 for the sequential tier).
 
-    Kernel launches per call: one push-pass sweep when the model has floor
-    or member contact pairs, and one velocity sweep. ``device`` defaults to
-    ``cuda``; on ``"cpu"`` the sweeps run their plain version."""
+    ``model.solver`` picks the two solves: ``"pallas"``, the fat-row sweep
+    (kernel launches per call: one push-pass sweep when the model has floor
+    or member contact pairs, and one velocity sweep); ``"xla"``, the
+    colored-phase Gauss-Seidel of :mod:`.phases` (no hand-written kernel).
+    ``device`` defaults to ``cuda``; on ``"cpu"`` the sweeps run their plain
+    version."""
 
     def __init__(self, model: PhysicsModel, dt: float, device=None):
-        if model.solver != "pallas":
-            raise NotImplementedError(
-                f"solver={model.solver!r}: the colored-phase XLA solver branch of the "
-                "per-env step is not ported (ROADMAP A9); use solver='pallas'"
-            )
         super().__init__(model, dt, device)
-        st = self.statics
-        n_it = model.n_iterations
-        self.solve_push = (
-            FatSolver(E._solver_meta(model, "push", st.n_pair, st.n_dyn), n_it, self.device)
-            if st.n_pair or st.n_dyn else None
-        )
-        self.solve_full = FatSolver(st.full_meta, n_it, self.device)
+        if self.solve_full is None:
+            st = self.statics
+            n_it = model.n_iterations
+            self.solve_push = (
+                FatSolver(E._solver_meta(model, "push", st.n_pair, st.n_dyn), n_it, self.device)
+                if st.n_pair or st.n_dyn else None
+            )
+            self.solve_full = FatSolver(st.full_meta, n_it, self.device)
 
     def _run(self, *state_envlast):
-        return step_perenv(self.model, self.statics, self.solve_push, self.solve_full,
-                           self.dt, *state_envlast)
+        return step_perenv(self.model, self.statics, self.solve_push, self.solve_full, self.dt,
+                           *state_envlast)

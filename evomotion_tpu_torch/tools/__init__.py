@@ -3,8 +3,9 @@
 (phases of the batched spider step), ``eval_walk`` (greedy evaluation of a
 robot_walk checkpoint), ``train_walk`` (long-run batched PPO training with
 learning-curve and greedy-eval logging), ``train_walk_offpolicy`` (the same
-for SAC and CrossQ) and ``train_offpolicy_cartpole`` (SAC and CrossQ
-learning curves on cartpole). Run each with ``python -m
+for SAC and CrossQ), ``train_offpolicy_cartpole`` (SAC and CrossQ
+learning curves on cartpole) and ``strict_trajectory`` (the strict-Bullet
+artifact replayed on the xla step). Run each with ``python -m
 evomotion_tpu_torch.tools.<name>``; they run on the card unless given
-``--device cpu`` (the profilers and the off-policy tools) or
+``--device cpu`` (the profilers, the off-policy tools and the replay) or
 ``device="cpu"`` (``main`` of the walker tools)."""

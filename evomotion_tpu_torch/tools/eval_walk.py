@@ -20,7 +20,12 @@ is the port's copy of the committed walker's policy files.
 Resets draw from a ``torch.Generator`` seeded with ``--seed``; the JAX tool
 draws them from ``jax.random``, so the two agree statistically, not episode
 by episode. Runs on the card unless ``main`` is given ``device="cpu"``.
-Recording the best episode (``--out``) waits for the viewer (ROADMAP A11).
+
+``--out OUT`` then re-runs the best episode (the longest, a win first) on
+one world with the per-env physics step, as the JAX tool steps one world,
+from that env's own state after the batched reset (its tilt is not drawn
+again), records its poses (``viewer.recorder``) and writes ``OUT.npz`` and
+the self-playing viewer ``OUT.html``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
+from ..envs.base import pick
 from ..envs.robot import RobotWalkFactory
 from ..networks.modules import Actor
 from ..train.checkpoint import load_component
@@ -105,6 +111,7 @@ class EvalResult(NamedTuple):
     early_steps: torch.Tensor  # [N] int32: valid steps within the first EARLY env steps
     reset_s: float  # host clock of the reset, ending in a wait for the card
     steps_s: float  # host clock of the step loop, the same way
+    initial: tuple  # the env states and results right after the reset
 
 
 def greedy_eval(env, policy, n_envs: int, horizon: int, generator) -> EvalResult:
@@ -116,6 +123,7 @@ def greedy_eval(env, policy, n_envs: int, horizon: int, generator) -> EvalResult
     est, res = env.reset(n_envs, generator)
     wait_for(res.obs)
     t1 = time.perf_counter()
+    initial = (est, res)
     dev = res.obs.device
     alive = torch.ones(n_envs, dtype=torch.bool, device=dev)
     steps = torch.zeros(n_envs, dtype=torch.int32, device=dev)
@@ -135,7 +143,35 @@ def greedy_eval(env, policy, n_envs: int, horizon: int, generator) -> EvalResult
             early = steps.clone()
     wait_for(steps)
     t2 = time.perf_counter()
-    return EvalResult(steps, ret, won, steps if early is None else early, t1 - t0, t2 - t1)
+    return EvalResult(steps, ret, won, steps if early is None else early, t1 - t0, t2 - t1,
+                      initial)
+
+
+def record_episode(env, policy, initial, index: int, out: str, horizon: int, gen=None):
+    """Re-run env ``index`` of a batched eval on one world with the per-env
+    step, from its state after the batched reset, under ``policy``; record
+    its valid steps until done (at most ``horizon`` env steps) into
+    ``out.npz`` and write ``out.html``. Returns (frames, done, win)."""
+    from ..viewer.html_viewer import write_playback_html
+    from ..viewer.recorder import TrajectoryRecorder
+
+    one = RobotWalkFactory({}).make(0, mt_parity=False, device=env.device, per_env_step=True)
+    one.model = env.model
+    st, res = (pick(x, index) for x in initial)
+    rec = TrajectoryRecorder(one)
+    obs, n = res.obs, 0
+    for _ in range(horizon):
+        st, res = one.step(st, policy(obs), gen)
+        obs = res.obs
+        if not bool(res.valid[0]):
+            continue
+        rec.add(st)
+        n += 1
+        if bool(res.done[0]):
+            break
+    rec.save(out + ".npz")
+    write_playback_html(out + ".npz", out + ".html", one.model, one.meta.root_body)
+    return n, bool(res.done[0]), bool(res.win[0])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,9 +190,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.out:
-        raise NotImplementedError("recording an episode (--out) needs the viewer, not "
-                                  "ported yet (ROADMAP A11)")
     dev = resolve(device)
     env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev, per_env_step=False)
 
@@ -195,6 +228,11 @@ def main(argv=None, device=None) -> int:
         "max_len": int(steps.max()), "mean_return": float(ret.mean()),
         "early_steps_mean": early, "early_horizon": EARLY, "ms_per_step": ms,
         "reset_s": r.reset_s, "steps_s": r.steps_s, "device": card}), flush=True)
+    if args.out:
+        best = int(np.argmax(steps + won * WIN))
+        n_rec, done, win = record_episode(env, policy, r.initial, best, args.out, WIN, gen)
+        print(f"recorded {n_rec} frames (done={done}, win={win}) -> {args.out}.npz / .html",
+              flush=True)
     return 0
 
 

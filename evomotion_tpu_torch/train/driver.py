@@ -10,10 +10,8 @@ and PPO-vanilla (``onpolicy_step_batched``) or SAC, CrossQ and liquid SAC
 with a device ring (``offpolicy_batched``), ``save_<i>/`` checkpoints of
 the reference's components. ``infer``: src/infer.cpp:19-106: load an agent,
 then step one env until done, episode after episode, on the per-env physics
-step. Both sequential loops serve every agent of the factory, the liquid
-ones too.
-
-Not ported yet: the recording hooks (ROADMAP A11).
+step, optionally recording the body poses (``viewer.recorder``). Both
+sequential loops serve every agent of the factory, the liquid ones too.
 """
 
 from __future__ import annotations
@@ -280,9 +278,9 @@ def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_p
           device=None):
     """Checkpoint rollout (infer.cpp): ``episodes`` episodes, each a reset
     then act/step until done, settle frames skipped with zero actions; prints
-    one line per episode. Runs on ``device`` (default ``cuda``)."""
-    if record_path is not None:
-        raise NotImplementedError("trajectory recording is not ported yet (ROADMAP A11)")
+    one line per episode. With ``record_path`` the body poses after every
+    counted step go to that ``.npz`` (``viewer.recorder``). Runs on
+    ``device`` (default ``cuda``)."""
     dev = resolve(device)
     env = env_factory.make(env_seed, device=dev)
     agent = agent_factory.create_agent(env.observation_size, env.action_size, device=dev)
@@ -292,6 +290,11 @@ def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_p
     # env made without one
     gen = torch.Generator(device=dev).manual_seed(env_seed)
     zeros = torch.zeros((1, env.action_size), device=dev)
+    recorder = None
+    if record_path is not None:
+        from ..viewer.recorder import TrajectoryRecorder
+
+        recorder = TrajectoryRecorder(env)
     for ep in range(episodes):
         state, res = env.reset(1, gen)
         reward, _, _ = _scalars(res)
@@ -304,10 +307,15 @@ def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_p
             while not valid:
                 state, res = env.step(state, zeros, gen)
                 reward, valid, done = _scalars(res)
+            if recorder is not None:
+                recorder.add(state)
             total += reward
             steps += 1
             if done:
                 break
         agent.done(res.obs, reward)
         print(f"episode {ep}: {steps} steps, return {total:.3f}", flush=True)
+    if recorder is not None:
+        recorder.save(record_path)
+        print(f"trajectory written to {record_path}", flush=True)
     return 0

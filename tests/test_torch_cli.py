@@ -63,14 +63,63 @@ def test_missing_agent_parameter_raises(tmp_path):
         cli.main(["cli", "cartpole", "constant", "run", str(tmp_path)], device="cpu")
 
 
-@pytest.mark.parametrize("argv", [
-    ["cli", "cartpole", "random", "run", "x", "--record", "t.npz"],
-    ["cli", "cartpole", "random", "run", "x", "--live"],
-    ["gui"],
-], ids=["record", "live", "gui"])
-def test_unported_parts_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cli.main(argv, device="cpu")
+@pytest.mark.parametrize("mode", ["record", "live", "gui"])
+def test_viewer_parts_run(mode, tmp_path, capsys, monkeypatch):
+    """``run --record/--html``, ``run --live`` (3 frames to a client on
+    127.0.0.1) and ``gui --max-requests`` (a client GETs the page and the
+    robot, POSTs an op) through ``cli.main`` on the CPU."""
+    import json
+    import threading
+    import urllib.request
+
+    from evomotion_tpu_torch.viewer import live
+    from test_torch_viewer import free_port, get_retry
+
+    if mode == "record":
+        npz, html = str(tmp_path / "t.npz"), str(tmp_path / "t.html")
+        assert cli.main(["cli", "cartpole", "random", "run", str(tmp_path), "--record", npz,
+                         "--html", html], device="cpu") == 0
+        out = capsys.readouterr().out.splitlines()
+        n = int(LINE.match(out[0]).group(2))
+        assert out[1:] == [f"trajectory written to {npz}", f"viewer written to {html}"]
+        with np.load(npz) as rec:
+            assert rec["pos"].shape == (n, 3, 3) and rec["quat"].shape == (n, 3, 4)
+        assert "FRAMES_POS" in open(html).read()
+        return
+    port = free_port()
+    got = {}
+    if mode == "live":
+        serve = live.serve_live
+        monkeypatch.setattr(live, "serve_live", lambda *a, **kw: serve(*a, **kw, max_frames=3))
+        argv = ["cli", "cartpole", "random", "run", str(tmp_path), "--live", "--port",
+                str(port)]
+
+        def client():
+            got["page"] = get_retry(f"http://127.0.0.1:{port}/").decode()
+            got["frames"] = [json.loads(get_retry(f"http://127.0.0.1:{port}/state"))
+                             for _ in range(3)]
+    else:
+        argv = ["gui", "--port", str(port), "--max-requests", "3", "--workspace",
+                str(tmp_path)]
+
+        def client():
+            got["page"] = get_retry(f"http://127.0.0.1:{port}/").decode()
+            got["robot"] = json.loads(get_retry(f"http://127.0.0.1:{port}/robot"))
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/api", method="POST", data=json.dumps(
+                    {"op": "add_member", "args": {"name": "torso"}}).encode())
+            got["reply"] = json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    assert cli.main(argv, device="cpu") == 0
+    t.join(timeout=60)
+    if mode == "live":
+        assert "drawGround" in got["page"] and len(got["frames"]) == 3
+        assert np.asarray(got["frames"][0]["pos"]).shape == (3, 3)
+    else:
+        assert "robot builder" in got["page"] and got["robot"]["members"] == []
+        assert got["reply"] == {"ok": True}
 
 
 def test_unknown_names_raise():

@@ -102,3 +102,24 @@ def test_host_tables_match(spiders):
 
 def test_mt19937_reset_table_matches():
     np.testing.assert_array_equal(j_table(1234, 3, 64), t_table(1234, 3, 64))
+
+
+@pytest.mark.parametrize("rel", ["serialize/legacy.py", "viewer/js_core.py",
+                                 "viewer/html_viewer.py", "viewer/render3d.py",
+                                 "builder/builder_env.py"])
+def test_numpy_only_copies_match_their_originals(rel):
+    """The port's copies of numpy-only modules are the originals' code: the
+    same syntax tree once the module docstrings (which name the copy) are
+    dropped."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+
+    def body(pkg):
+        tree = ast.parse((root / pkg / rel).read_text())
+        if ast.get_docstring(tree) is not None:
+            tree.body = tree.body[1:]
+        return ast.dump(tree)
+
+    assert body("evomotion_tpu_torch") == body("evomotion_tpu")

@@ -1,7 +1,8 @@
 """The port runs where JAX is not installed: importing it, every module
 under it (the ``tools`` subpackage of profilers and walker tools, the
 networks, the agents, the replay buffers and the trainers too, the liquid
-tier's among them), and
+tier's among them, the xla phase solves, the strict replay, the legacy
+converter, the viewer and the builder), and
 chip_smoke.py
 must import neither ``jax`` nor any module of the JAX package
 ``evomotion_tpu``."""
@@ -52,7 +53,17 @@ assert {"evomotion_tpu_torch.tools.prof_kernel",
         "evomotion_tpu_torch.tools.train_walk_offpolicy",
         "evomotion_tpu_torch.networks.liquid",
         "evomotion_tpu_torch.agents.liquid_agents",
-        "evomotion_tpu_torch.train.ppo_liquid_batched"} <= set(names), names
+        "evomotion_tpu_torch.train.ppo_liquid_batched",
+        "evomotion_tpu_torch.physics.phases",
+        "evomotion_tpu_torch.tools.strict_trajectory",
+        "evomotion_tpu_torch.serialize.legacy",
+        "evomotion_tpu_torch.viewer.recorder",
+        "evomotion_tpu_torch.viewer.js_core",
+        "evomotion_tpu_torch.viewer.html_viewer",
+        "evomotion_tpu_torch.viewer.render3d",
+        "evomotion_tpu_torch.viewer.live",
+        "evomotion_tpu_torch.builder.builder_env",
+        "evomotion_tpu_torch.builder.web_editor"} <= set(names), names
 """
 
 

@@ -149,9 +149,8 @@ def test_physics_step_dispatch_and_batched_call_shape():
     """physics_step routes one world to the per-env step and a batch to the
     batched step; the per-env step on a batch (the JAX per-env solver's vmap
     shape) steps each world as it steps it alone, without building the slim
-    sweep's metadata. solver='xla' is not ported."""
-    import pytest
-
+    sweep's metadata. A solver='xla' model takes the colored-phase solves
+    through both calls, one world and a batch alike."""
     from evomotion_tpu_torch.physics.batched import BatchedStep
     from evomotion_tpu_torch.physics.perenv import PerEnvStep
 
@@ -171,5 +170,9 @@ def test_physics_step_dispatch_and_batched_call_shape():
                                       en[i], DT)
         for a, b in zip(one, both):
             torch.testing.assert_close(a, b[i], atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        PerEnvStep(dataclasses.replace(model, solver="xla"), DT, device="cpu")
+    xm = dataclasses.replace(model, solver="xla")
+    got_x, _ = tengine.physics_step(xm, batch, tgt, en, DT)
+    ref_x, _ = PerEnvStep(xm, DT, device="cpu")(batch, tgt, en)
+    for a, b in zip(got_x, ref_x):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert not torch.equal(got_x.pos, got.pos)  # not the fused sweep's result

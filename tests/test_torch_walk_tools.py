@@ -96,8 +96,17 @@ def test_eval_walk_crossq_on_a_jax_saved_actor(small, capsys, tmp_path):
     obs = np.random.default_rng(1).standard_normal((8, S)).astype(np.float32)
     np.testing.assert_allclose(policy(torch.as_tensor(obs)).numpy(), _jax_greedy(jp, obs),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        eval_walk.main(["crossq", str(tmp_path), "--out", "x"], device="cpu")
+    # --out: the best episode re-run on one world (the per-env step), recorded
+    best = str(tmp_path / "best")
+    assert eval_walk.main(["crossq", str(tmp_path), "--hidden", "16", "--episodes", "2",
+                           "--row-order", "canonical", "--out", best], device="cpu") == 0
+    m = re.search(r"recorded (\d+) frames \(done=(\w+), win=(\w+)\) -> ",
+                  capsys.readouterr().out)
+    assert m and 1 <= int(m.group(1)) <= eval_walk.WIN
+    with np.load(best + ".npz") as rec:
+        assert rec["pos"].shape == (int(m.group(1)), 42, 3)
+        assert rec["quat"].shape == (int(m.group(1)), 42, 4)
+    assert open(best + ".html").read().startswith("<!DOCTYPE html>")
 
 
 def _jax_tool_source():
