@@ -24,7 +24,9 @@ agents (the fat-row sweep); the colored-phase ``solver="xla"`` step and
 the strict-Bullet replay (plain PyTorch: the JAX branch reaches no
 kernel); the viewer's ``run --record/--html/--live`` and ``eval_walk
 --out``'s re-run, and the web robot builder's infer tab (``cli gui``), all
-on the fat-row sweep. Phases, each printed with its seconds:
+on the fat-row sweep; data-parallel PPO and CrossQ training over the env
+batch (``tools.multihost_worker`` under ``torch.distributed.run``, the
+slim sweep in every rank). Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
@@ -84,7 +86,8 @@ on the fat-row sweep. Phases, each printed with its seconds:
     must equal the sweep calls each tool reports;
 14. walker eval, the serving path: ``tools.eval_walk.main`` on the port's
     copy of the committed walker (``ppo`` tier, its ``scheduled`` order, 64
-    envs, the 1800-step win horizon, seed 999); the actor on the card
+    envs, the first 400 steps of the 1800-step win horizon, seed 999); the
+    actor on the card
     against the CPU actor on the eval's first observations within
     POLICY_TOL, the mean valid steps within the first 400 above
     WALKER_EARLY_FLOOR; the slim sweep's kernel on the eval's first call
@@ -109,11 +112,11 @@ on the fat-row sweep. Phases, each printed with its seconds:
     moments and counts, BatchRenorm statistics, target critics, log_alpha);
     the card's ms, device launches and device time per update;
 17. cross_q train: ``cli.main([... "robot_walk", "cross_q", "--num_envs",
-    "256", ... "train", ...])`` for 2 iterations with the JAX tier's walker
+    "256", ... "train", ...])`` for 1 iteration with the JAX tier's walker
     config (``runs/walk_r4_crossq_s1234/config.json``: 64 steps per
     iteration, actor 256, BatchRenorm critics 1,024, batch 256, 4 updates
     per env step, a 2^20 ring, the nan guard) and ``EVOMOTION_PROFILE=1``:
-    finite losses, the ring filled with 2 x 16,384 transitions, moved actor
+    finite losses, the ring filled with 16,384 transitions, moved actor
     tensors, ``save_0`` loading back equal into a fresh agent on the card;
     rollout and update ms per iteration, env-steps/s and gradient steps/s
     printed; the slim sweep counted as in 15 and held against its plain
@@ -150,7 +153,7 @@ on the fat-row sweep. Phases, each printed with its seconds:
     env-steps/s); the CLI's sequential ``run`` of one episode, the fat-row
     sweep twice per physics step;
 23. actor_critic and ppo_vanilla train: ``cli.main([... "robot_walk",
-    algo, "--num_envs", "2048", ... "train", ... "-e", "2", "-n", "1"])``
+    algo, "--num_envs", "2048", ... "train", ... "-e", "1", "-n", "1"])``
     with hidden 256, horizon 64, batch 256, epoch 8 and
     ``EVOMOTION_PROFILE=1``: finite losses, moved parameters, ``save_0``
     loading back equal on the card; the slim sweep counted and held as in
@@ -171,10 +174,10 @@ on the fat-row sweep. Phases, each printed with its seconds:
     within UPDATE_TOL (A2C's and SAC's whole carry); ms, device launches
     and device ms per update;
 26. ppo_gae_liquid train: ``cli.main([... "robot_walk", "ppo_gae_liquid",
-    "--num_envs", "2048", ... "train", ... "-e", "2", "-n", "1"])`` with
+    "--num_envs", "2048", ... "train", ... "-e", "1", "-n", "1"])`` with
     the JAX driver's liquid defaults (64 neurons, 6 unfoldings, horizon
     64, 8 epochs) and ``EVOMOTION_PROFILE=1``: the slim sweep launched 60
-    + 2 x 64 = 188 times and held as in 15, finite losses, moved actor
+    + 64 = 124 times and held as in 15, finite losses, moved actor
     tensors, ``save_0`` loading back equal on the card; rollout and update
     ms per iteration and env-steps/s printed;
 27. soft_actor_critic_liquid train: the same at 256 envs, batch 256, an
@@ -188,7 +191,7 @@ on the fat-row sweep. Phases, each printed with its seconds:
     fat-row sweep once per cartpole and twice per spider physics step,
     each command's first call against its plain version;
 29. xla on the card: the strict replay (``tools.strict_trajectory``'s
-    env, the 30-frame reset and the first 32 artifact actions), its
+    env, the 30-frame reset and the first 8 artifact actions), its
     distance from ``tests/goldens/strict_walk.npz`` printed as a reading
     (the settle is chaotic in f32, ROADMAP trap 14) and no sweep kernel
     launched during it (the xla branch reaches none); from replay states,
@@ -208,8 +211,20 @@ on the fat-row sweep. Phases, each printed with its seconds:
     robot, builder ops, and the infer tab on the spider with a port CrossQ
     checkpoint at the tab's default config, 3 frames polled; the fat-row
     sweep twice per physics step;
-32. the off-policy, on-policy, liquid and xla/viewer/gui readings lines,
-    the kernels line and the last line (one JSON object each).
+32. data parallel: ``tools.multihost_worker`` process groups over the env
+    batch (``parallel.mesh``), each rank's slim sweep counts (set to 0 just
+    before its trainer's init) returned in its JSON line: ppo train's
+    workload (B=2048, 2 iterations) in one process and on one NCCL rank
+    under the deterministic mode, bit-equal; on two gloo ranks of 1,024
+    envs on the one card, the replicas bit-equal and the second update
+    within DP_UPDATE_TOL of the one-process update of the same gathered
+    trajectory; CrossQ at the walker config on two gloo ranks of 128 envs;
+    env-steps/s, the update's ms and one update's broadcasts printed; the
+    slim sweep's kernel on the first call at each rank's batch against its
+    plain version;
+33. the off-policy, on-policy, liquid, xla/viewer/gui and data-parallel
+    readings lines, the kernels line and the last line (one JSON object
+    each).
 
 Any failed check exits non-zero before the last line. Without a card (and
 without ``--cpu``) the script exits non-zero and prints no result.
@@ -275,8 +290,11 @@ CHAIN_OPS = 12
 FP32_LATENCY_CYCLES = 4
 SEQ_EPISODES = {"cartpole": 3, "cartpole3d": 3, "robot_walk": 1}
 SCHEDULED_STEPS = 60  # env steps of the scheduled rollout after its reset
-# the walker eval: the JAX tool's defaults (64 envs, seed 999)
-WALKER_ENVS, WALKER_SEED = 64, 999
+# the walker eval: the JAX tool's defaults (64 envs, seed 999), over the
+# first 400 env steps of the 1,800-step win horizon, the early gate's (cut
+# for the script's time limit: the env's win comes at step 1,800, so the
+# win rate reads 0 here and the early-steps gate is what holds the gait)
+WALKER_ENVS, WALKER_SEED, WALKER_HORIZON = 64, 999, 400
 # |card - CPU| bound on the walker actor's (mu, sigma): f32 matmuls on both
 # (no TF32), summed in another order; mu and sigma are O(1)
 POLICY_TOL = 1e-4
@@ -1084,7 +1102,8 @@ def small_walker(cpu):
 def walker_eval(args, dev, cpu, card, cap):
     """Phase 14, the serving path: ``tools.eval_walk.main`` on the port's
     copy of the committed walker (``ppo`` tier, its meta.json's row order,
-    64 envs, the 1800-step win horizon, the tool's default seed 999). Gate
+    64 envs, the tool's default seed 999, over WALKER_HORIZON of the
+    1800-step win horizon: ``eval_walk.WIN`` is cut for the run). Gate
     1: the actor's (mu, sigma) on the card against the CPU actor on the
     eval's first observations (the same seeded reset) within POLICY_TOL.
     Gate 2: the mean valid steps within the first 400 env steps above
@@ -1126,14 +1145,21 @@ def walker_eval(args, dev, cpu, card, cap):
         cap.arm(limit=1)
         env.step(est, card_pol(first.obs), gen)
         cap.armed = False
+        env_settle = env.settle_total
         kern_err = captured_check(cap.inputs, cpu, f"walker eval sweep, B={n_envs} "
                                   f"{meta['eval_order']}")
-        want = env.settle_total + ew.WIN  # physics steps of the eval
         del env, est, first
+        saved_win = ew.WIN
+        if not cpu:
+            ew.WIN = WALKER_HORIZON
+        want = env_settle + ew.WIN  # physics steps of the eval
         sp.KERNEL.launches = 0
         cap.calls = 0
-        res = run_tool(ew, ["ppo", ew.WALKER_DIR, "--episodes", str(n_envs),
-                            "--seed", str(WALKER_SEED)], "eval_walk", device=dev)
+        try:
+            res = run_tool(ew, ["ppo", ew.WALKER_DIR, "--episodes", str(n_envs),
+                                "--seed", str(WALKER_SEED)], "eval_walk", device=dev)
+        finally:
+            ew.WIN = saved_win
         launches, calls = sp.KERNEL.launches, cap.calls
     print(f"walker eval: sweep calls {calls}, kernel launches {launches}, physics steps "
           f"{want}", flush=True)
@@ -1326,13 +1352,14 @@ UPDATE_TOL = 1e-4
 # the off-policy walker config, runs/walk_r4_crossq_s1234/config.json (the
 # defaults of tools/train_walk_offpolicy.py): 256 envs x 64 steps, actor 256,
 # BatchRenorm critics 1,024, batch 256, 4 updates per env step, a 2^20 ring,
-# the nan guard on. Only the iteration count is cut: 2 against 12,000.
+# the nan guard on. Only the iteration count is cut: 1 against 12,000 (the
+# script's time limit).
 OFF_ENVS, OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH, OFF_RING = 256, 256, 1024, 256, 4, 1 << 20
-OFF_ITERS = 2
+OFF_ITERS = 1
 # the smoke evals of a trained actor (phases 15 and 17)
 OFF_EVAL_ENVS, OFF_EVAL_STEPS = 16, 100
-# the C2 resume's iteration length: a quarter of the walker config's 64
-C2_HORIZON = 16
+# the C2 resume's iteration length: an eighth of the walker config's 64
+C2_HORIZON = 8
 # agent parameters of the sequential cartpole train (strict keys, no
 # defaults); episodes capped at 300 steps
 SEQ_TRAIN_PARAMS = ["actor_hidden_size=64", "critic_hidden_size=64", "batch_size=64", "epoch=1",
@@ -1471,9 +1498,9 @@ def _saved_equal(label, agent, save):
 
 def offpolicy_train(args, dev, cpu, card, cap, algo):
     """Phases 17-18, the CLI's batched off-policy ``train``: ``cli.main(["cli",
-    "robot_walk", algo, "--num_envs", "256", ..., "train", out, "-e", "2",
+    "robot_walk", algo, "--num_envs", "256", ..., "train", out, "-e", "1",
     "-n", "1"])`` with the walker config (OFF_*) and ``EVOMOTION_PROFILE=1``.
-    The losses must be finite, the ring must hold 2 x 16,384 transitions,
+    The losses must be finite, the ring must hold 16,384 transitions,
     every actor tensor must have moved from its seeded init, and ``save_0``
     must load back equal into a fresh agent on the card. The slim sweep's
     counts are set to 0 just before and read just after: one launch per
@@ -1495,6 +1522,7 @@ def offpolicy_train(args, dev, cpu, card, cap, algo):
     n_envs, actor, critic, batch, epoch, horizon, ring = (
         (2, 16, 16, 4, 1, 2, 64) if cpu
         else (OFF_ENVS, OFF_ACTOR, OFF_CRITIC, OFF_BATCH, OFF_EPOCH, 64, OFF_RING))
+    iters = 2 if cpu else OFF_ITERS  # the rehearsal's tiny ring fills in its second
     kv = {"hidden_size": actor, "critic_hidden_size": critic, "batch_size": batch,
           "epoch": epoch, "learning_rate": 3e-4, "gamma": 0.99, "tau": 0.005, "train_every": 1,
           "horizon": horizon, "replay_buffer_size": ring, "nan_guard": "true"}
@@ -1510,15 +1538,15 @@ def offpolicy_train(args, dev, cpu, card, cap, algo):
                                         per_env_step=False)
         argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
                 str(args.seed), "--agent_parameters", *(f"{k}={v}" for k, v in kv.items()),
-                "train", out, "-e", str(OFF_ITERS), "-n", "1"]
+                "train", out, "-e", str(iters), "-n", "1"]
         ob.BatchedOffPolicy.init = kept_init
         try:
-            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, OFF_ITERS,
+            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, iters,
                                                                 horizon, dev, cpu, cap)
         finally:
             ob.BatchedOffPolicy.init = init
         state = states[0]
-        if state.ring.filled != OFF_ITERS * horizon * n_envs or state.iteration != OFF_ITERS:
+        if state.ring.filled != iters * horizon * n_envs or state.iteration != iters:
             fail(f"{label}: ring filled {state.ring.filled} after {state.iteration} iterations")
         grads = horizon * epoch  # updates per iteration (train_every 1)
         grad_rate = grads / (ms["train_iter"] / 1e3)
@@ -1726,8 +1754,9 @@ A2C_BATCH, VANILLA_BATCH, GAE_TRAJ, GAE_MAX_LEN = 256, 256 * 64, 8, 1800
 ON_ALGOS = ("actor_critic", "ppo_vanilla", "ppo_gae")
 # phase 22: the batched jump rollout after its reset (10 settle steps)
 JUMP_ENVS, JUMP_STEPS = 2048, 60
-# phase 23: the CLI's batched A2C and PPO-vanilla train, iterations
-ON_TRAIN_ITERS = 2
+# phase 23: the CLI's batched A2C and PPO-vanilla train, iterations (cut
+# for the script's time limit)
+ON_TRAIN_ITERS = 1
 # phase 24: agent parameters of the sequential cartpole train (strict keys)
 ON_SEQ_PARAMS = {
     "actor_critic": ["hidden_size=64", "batch_size=64", "lr=1e-3", "gamma=0.99",
@@ -2016,7 +2045,7 @@ def robot_jump(args, dev, cpu, card, cap, fat_cap):
 def onpolicy_train(args, dev, cpu, card, cap, algo):
     """Phase 23, the CLI's batched A2C or PPO-vanilla ``train``: ``cli.main([
     "cli", "robot_walk", algo, "--num_envs", "2048", ..., "train", out, "-e",
-    "2", "-n", "1"])`` with hidden 256, horizon 64, batch 256, 8 epochs and
+    "1", "-n", "1"])`` with hidden 256, horizon 64, batch 256, 8 epochs and
     ``EVOMOTION_PROFILE=1`` (``profiled_train``: the slim sweep once per
     physics step, its first call against its plain version). The losses
     must be finite, every actor tensor must have moved from its seeded init,
@@ -2033,14 +2062,15 @@ def onpolicy_train(args, dev, cpu, card, cap, algo):
     t0 = phase(label)
     n_envs, hidden, horizon, batch, epoch = (2, 16, 2, 4, 1) if cpu else (
         2048, ON_HIDDEN, 64, 256, ON_EPOCH)
+    iters = 2 if cpu else ON_TRAIN_ITERS  # the rehearsal's tiny ring fills in its second
     with tempfile.TemporaryDirectory() as out, small_walker(cpu):
         env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
                                         per_env_step=False)
         argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
                 str(args.seed), "--agent_parameters", f"hidden_size={hidden}",
                 f"horizon={horizon}", f"batch_size={batch}", f"epoch={epoch}",
-                "learning_rate=1e-3", "train", out, "-e", str(ON_TRAIN_ITERS), "-n", "1"]
-        prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, ON_TRAIN_ITERS,
+                "learning_rate=1e-3", "train", out, "-e", str(iters), "-n", "1"]
+        prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, iters,
                                                             horizon, dev, cpu, cap)
         updates = horizon if algo == "actor_critic" else epoch
         print(f"{label} [{card}]: per iteration ({horizon} steps x {n_envs} envs, {updates} "
@@ -2064,7 +2094,7 @@ def onpolicy_train(args, dev, cpu, card, cap, algo):
         count = int(np.load(os.path.join(save, "actor_optimizer.npz"))["0/count"])
         # A2C's events wait for a batch of trainable transitions in the ring:
         # at 2048 envs the first block holds one, in the rehearsal not yet
-        want = ON_TRAIN_ITERS * updates
+        want = iters * updates
         if not (count == want or (cpu and 0 < count < want)):
             fail(f"{label}: Adam count {count}, expected {want}")
         print(f"{label}: save_0 ({len(agent.SAVE)} components) loads back equal on the card, "
@@ -2134,8 +2164,8 @@ LIQ_BATCH, LIQ_GAE_TRAJ, LIQ_GAE_MAX_LEN, LIQ_EPOCH = 256, 8, 1800, 8
 LIQ_LR = {"actor_critic_liquid": 1e-3, "ppo_gae_liquid": 1e-3, "soft_actor_critic_liquid": 3e-4}
 # phases 26-27: the CLI's batched liquid PPO-GAE at B=2048 and liquid SAC at
 # B=256 (horizon 64, SAC batch 256 with an update per env step and a
-# 65,536-entry ring), each 2 iterations
-LIQ_PPO_ENVS, LIQ_SAC_ENVS, LIQ_ITERS = 2048, 256, 2
+# 65,536-entry ring), each 1 iteration (cut for the script's time limit)
+LIQ_PPO_ENVS, LIQ_SAC_ENVS, LIQ_ITERS = 2048, 256, 1
 # phase 28: agent parameters of the sequential cartpole train (strict keys)
 LIQ_SEQ_PARAMS = {
     "actor_critic_liquid": ["neuron_number=64", "batch_size=64", "lr=1e-3", "gamma=0.99",
@@ -2323,12 +2353,12 @@ def liquid_update_check(args, dev, cpu, card):
 
 def liquid_train(args, dev, cpu, card, cap, algo, keep=None):
     """Phases 26-27, the CLI's batched liquid ``train``: ``cli.main(["cli",
-    "robot_walk", algo, "--num_envs", ..., "train", out, "-e", "2", "-n",
+    "robot_walk", algo, "--num_envs", ..., "train", out, "-e", "1", "-n",
     "1"])`` with the JAX driver's liquid defaults (64 neurons, 6
     unfoldings, horizon 64; PPO-GAE at 2048 envs and 8 epochs, SAC at 256
     envs, batch 256, an update per env step and a 65,536-entry ring) and
     ``EVOMOTION_PROFILE=1`` (``profiled_train``: the slim sweep once per
-    physics step, 60 + 2 x 64 = 188, its first call against its plain
+    physics step, 60 + 64 = 124, its first call against its plain
     version). The losses must be finite, every actor tensor must have moved
     from its seeded init, and ``save_0`` must load back equal into a fresh
     agent on the card. SAC: each iteration's ``updates_done`` (64), the
@@ -2355,6 +2385,7 @@ def liquid_train(args, dev, cpu, card, cap, algo, keep=None):
                   replay_buffer_size=64 if cpu else 65536)
     else:
         kv.update(epoch=1 if cpu else LIQ_EPOCH, learning_rate=1e-3)
+    iters = 2 if cpu else LIQ_ITERS  # the rehearsal's tiny ring fills in its second
     kept, own = [], ob.BatchedOffPolicyLiquid.train_step_fn
 
     def recording(self, *a, **k):
@@ -2371,10 +2402,10 @@ def liquid_train(args, dev, cpu, card, cap, algo, keep=None):
                                         per_env_step=False)
         argv = ["cli", "robot_walk", algo, "--num_envs", str(n_envs), "--env_seed",
                 str(args.seed), "--agent_parameters", *(f"{k}={v}" for k, v in kv.items()),
-                "train", out, "-e", str(LIQ_ITERS), "-n", "1"]
+                "train", out, "-e", str(iters), "-n", "1"]
         ob.BatchedOffPolicyLiquid.train_step_fn = recording
         try:
-            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, LIQ_ITERS,
+            prog, ms, rate, launches, kern_err = profiled_train(argv, label, env, iters,
                                                                 horizon, dev, cpu, cap)
         finally:
             ob.BatchedOffPolicyLiquid.train_step_fn = own
@@ -2386,7 +2417,7 @@ def liquid_train(args, dev, cpu, card, cap, algo, keep=None):
                              for t in (f.values() if isinstance(f, dict) else [f]))
             per_iter = horizon  # train_every 1, epoch 1
             # the rehearsal's 2 envs fill no batch of 4 trainable transitions at first
-            if updates != [per_iter] * LIQ_ITERS and not (cpu and len(updates) == LIQ_ITERS):
+            if updates != [per_iter] * iters and not (cpu and len(updates) == iters):
                 fail(f"{label}: updates_done {updates}, expected {per_iter} per iteration")
             grad_rate = per_iter / (ms["train_iter"] / 1e3)
             extra = {"updates_done": updates, "ring_bytes": ring_bytes, "grad_rate": grad_rate}
@@ -2479,11 +2510,12 @@ def liquid_sequential(args, dev, cpu, card, fat_cap, ppo_save, random_lengths):
 # ---- the xla solver, the viewer and the builder (phases 29-31) -----------------
 
 # the strict replay on the card: the artifact's 30-frame reset, then its
-# first 32 env steps (tests/goldens/strict_walk.npz)
-XLA_REPLAY_STEPS = 32
+# first 8 env steps (tests/goldens/strict_walk.npz; cut for the script's
+# time limit)
+XLA_REPLAY_STEPS = 8
 # replay steps from whose card state one card step is held against the CPU
 # step (the CPU's xla spider step takes ~0.3-0.5 s)
-XLA_CHECK_AT = (0, 16, 31)
+XLA_CHECK_AT = (0, 4, 7)
 XLA_PROFILE_STEPS = 2
 # eval_walk --out in phase 30: the committed walker at 4 envs over a
 # 120-step horizon (phase 14 runs 64 over the full 1,800), then the best
@@ -2510,7 +2542,7 @@ def xla_on_card(args, dev, cpu, card):
     hand-written kernel: its groups of rows are a dozen small ops each).
     The strict replay: ``tools.strict_trajectory``'s env (robot_walk, 30
     reset frames, the mt19937 stream, strict Bullet, xla) reset and stepped
-    with the artifact's first 32 actions; its distance from
+    with the artifact's first 8 actions; its distance from
     ``tests/goldens/strict_walk.npz`` is printed as a reading (the settle is
     chaotic in f32: JAX's own two programs part by ~0.4, ROADMAP trap 14).
     Gates: the replay finite, with no sweep kernel launched (counts set to 0
@@ -2901,6 +2933,179 @@ def gui_path(args, dev, cpu, card):
     return {"launches": launches, "physics_steps": n_phys, "s": wall}
 
 
+# ---- data parallelism over the env batch (phase 32) ----------------------------
+
+# phase 32's workloads: ppo train's (phase 15: robot_walk, B=2048, hidden 256,
+# horizon 64, 8 epochs, lr 1e-3) at 2 iterations, one process and one NCCL
+# rank, then two gloo ranks of 1,024 envs on the one card; CrossQ at the
+# walker config (phases 17-18) on two gloo ranks of 128 envs, 1 iteration
+DP_PPO = ["--env", "robot_walk", "--algo", "ppo_gae", "--num_envs", "2048", "--iterations",
+          "2", "--agent_parameters", "hidden_size=256", "horizon=64", "epoch=8",
+          "learning_rate=1e-3"]
+DP_CROSSQ = ["--env", "robot_walk", "--algo", "cross_q", "--num_envs", str(OFF_ENVS),
+             "--iterations", "1", "--agent_parameters", f"hidden_size={OFF_ACTOR}",
+             f"critic_hidden_size={OFF_CRITIC}", f"batch_size={OFF_BATCH}",
+             f"epoch={OFF_EPOCH}", "learning_rate=3e-4", "train_every=1", "horizon=64",
+             f"replay_buffer_size={OFF_RING}", "nan_guard=true"]
+# the CPU rehearsal's: cartpole, 8 envs, small networks
+DP_CPU = ["--env", "cartpole", "--num_envs", "8", "--device", "cpu", "--agent_parameters",
+          "hidden_size=16", "horizon=4", "epoch=2", "batch_size=8", "replay_buffer_size=64"]
+# |sharded - one-process| bound on the two-rank PPO update of one trajectory
+# from a shared state (its second iteration): the same f32 sums, split over
+# two ranks (trap 11 spares the second update, whose Adam moments are not
+# noise)
+DP_UPDATE_TOL = 1e-5
+
+
+def dp_worker(argv, label, nproc=None, timeout=600):
+    """Runs ``tools.multihost_worker`` with ``argv`` in a new process
+    group: alone (``--no-mesh``) when ``nproc`` is None, else under
+    ``torch.distributed.run --standalone --nproc_per_node nproc``. Returns
+    its ranks' JSON lines, sorted by rank, and the wall seconds; fails
+    unless it exits 0 with one line per rank. A run past ``timeout`` is
+    killed with every process it started."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mod = ["-m", "evomotion_tpu_torch.tools.multihost_worker"]
+    if nproc is None:
+        cmd = [sys.executable, *mod, "--no-mesh", *argv]
+    else:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), *mod, *argv]
+    print(f"{label}: " + " ".join(cmd[1:]), flush=True)
+    # torchrun gives each rank one OpenMP thread; the one-process run gets
+    # the same, so that the runs differ only by the process group
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    ts = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, stdin=subprocess.DEVNULL, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{label}: no end within {timeout} s")
+    wall = time.perf_counter() - ts
+    lines = sorted((json.loads(x) for x in out.splitlines() if x.startswith('{"rank"')),
+                   key=lambda x: x["rank"])
+    if proc.returncode != 0 or len(lines) != (nproc or 1):
+        print(out[-4000:], err[-6000:], flush=True)
+        fail(f"{label}: exit {proc.returncode}, {len(lines)} rank lines")
+    for x in lines:
+        short = {k: v for k, v in x.items() if k != "checksums"}
+        print(f"{label}: {json.dumps(short)}", flush=True)
+    return lines, wall
+
+
+def data_parallel(args, dev, cpu, card, cap):
+    """Phase 32, data parallelism over the env batch (``parallel.mesh``),
+    each run a ``tools.multihost_worker`` process group started here
+    (kernels built in phase 2): (i) ppo train's workload (DP_PPO) in one
+    process without a mesh and on one NCCL rank, both under
+    ``torch.use_deterministic_algorithms``: the parameters and Adam states
+    after iteration 1 (and 2) bit-equal (sha256); (ii) the same on two gloo
+    ranks of 1,024 envs on the one card, the ranks' checksums equal after
+    every iteration and the second iteration's sharded update within
+    DP_UPDATE_TOL of the one-process update of the gathered trajectory from
+    the same state (``--check-update``); CrossQ at the walker config on two
+    gloo ranks of 128 envs, 1 iteration, the checksums equal, with the ms
+    that one update's broadcasts of gradients and buffers take alone. Each
+    rank's slim sweep counts come back in its line: one launch per physics
+    step (the full-batch reset's 60, then 64 per iteration). Before the
+    runs, the slim sweep's kernel on the first call of a reset at each
+    rank's batch (1,024 and 128 envs) against its plain version (one plain
+    call on both calls' first envs side by side). On the CPU (``--cpu``),
+    cartpole at 8 envs over gloo."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalkFactory
+    from evomotion_tpu_torch.kernels import sweep as sp
+
+    t0 = phase("data parallel")
+    with small_walker(cpu):
+        env = RobotWalkFactory({}).make(args.seed, mt_parity=False, device=dev,
+                                        per_env_step=False)
+        inputs = []
+        for n in ((2, 1) if cpu else (1024, OFF_ENVS // 2)):
+            cap.arm(limit=1)
+            env.reset(n, torch.Generator(device=dev).manual_seed(args.seed))
+            cap.armed = False
+            inputs.append(cap.inputs)
+    del env
+    # each call through the kernel at its batch, then one plain call on both
+    # calls' first envs side by side (env axis last; one model, one meta)
+    outs = [sp.sweep_plain(*inp) if cpu else sp.solver_sweep_envlast_slim(*inp)
+            for inp in inputs]
+    keep = [min(N_CMP, inp[0].shape[-1]) for inp in inputs]
+    if inputs[1][5] is not inputs[0][5] or inputs[1][6] != inputs[0][6]:
+        fail("data parallel: the rank batches' sweep calls do not share one model")
+
+    def side_by_side(xs):
+        return [torch.cat([x[i][..., :k] for x, k in zip(xs, keep)], -1)
+                if torch.is_tensor(xs[0][i]) else xs[0][i] for i in range(len(xs[0]))]
+
+    err = slim_check(side_by_side(inputs), side_by_side(outs), sum(keep),
+                     f"data parallel rank batches B={[x[0].shape[-1] for x in inputs]} "
+                     f"(first {keep} envs)")
+    if not cpu:
+        torch.cuda.empty_cache()
+    seed = ["--seed", str(args.seed)]
+    ppo = (DP_CPU + ["--algo", "ppo_gae", "--iterations", "2"]) if cpu else DP_PPO
+    crossq = (DP_CPU + ["--algo", "cross_q", "--iterations", "1"]) if cpu else DP_CROSSQ
+    det = ["--deterministic"]
+    plain, plain_s = dp_worker(ppo + seed + det, "dp ppo, one process")
+    one, one_s = dp_worker(ppo + seed + det + (["--backend", "gloo"] if cpu else []),
+                           f"dp ppo, 1 {'gloo' if cpu else 'nccl'} rank", nproc=1)
+    two, two_s = dp_worker(ppo + seed + ["--check-update", "--backend", "gloo"],
+                           "dp ppo, 2 gloo ranks", nproc=2)
+    cq, cq_s = dp_worker(crossq + seed + ["--backend", "gloo"], "dp cross_q, 2 gloo ranks",
+                         nproc=2)
+
+    (p,), (o,) = plain, one
+    if o["checksums"] != p["checksums"]:
+        fail(f"dp ppo: one {o['backend']} rank is not bit-equal to one process: "
+             f"{o['checksums']} vs {p['checksums']}")
+    for label, ranks in (("dp ppo, 2 ranks", two), ("dp cross_q, 2 ranks", cq)):
+        if len({tuple(x["checksums"]) for x in ranks}) != 1:
+            fail(f"{label}: the replicas parted: {[x['checksums'] for x in ranks]}")
+    for x in (*plain, *one, *two, *cq):
+        if not all(math.isfinite(v) for it in x["losses"] for v in it):
+            fail(f"dp {x['algo']} rank {x['rank']}: losses {x['losses']}")
+    check = two[0]["update_check"]
+    if not max(check.values()) <= DP_UPDATE_TOL:
+        fail(f"dp ppo, 2 ranks: sharded update against one process {check}")
+    settle = 2 if cpu else 60  # the walker's reset (cartpole's per-env step on the CPU)
+    launches = {}
+    for label, runs in (("ppo no mesh", plain), ("ppo 1 rank", one), ("ppo 2 ranks", two),
+                        ("cross_q 2 ranks", cq)):
+        n = [x["launches"]["sweep_envlast_slim"] for x in runs]
+        want = settle + len(runs[0]["losses"]) * runs[0]["horizon"]
+        if not cpu and n != [want] * len(runs):
+            fail(f"dp {label}: slim sweep launches {n} per rank, want {want} each")
+        launches[label] = sum(n)
+    rate = {"no mesh": p["env_steps_s"], "1 rank": o["env_steps_s"],
+            "2 ranks": two[0]["env_steps_s"]}
+    print(f"data parallel [{card}]: ppo B={p['num_envs']} env-steps/s per iteration (incl. "
+          f"update): "
+          f"one process {p['env_steps_s']}, 1 {o['backend']} rank {o['env_steps_s']}, "
+          f"2 gloo ranks on one card {two[0]['env_steps_s']} (their total; a reading); "
+          f"bit-equal 1 rank vs one process; 2-rank update vs one process {check}; "
+          f"cross_q 2 x {cq[0]['local_envs']}: {cq[0]['env_steps_s']} env-steps/s, phases "
+          f"{cq[0]['phase_ms']} ms, gloo broadcasts of one update "
+          f"{cq[0].get('replicate_ms_per_update')} ms; launches {launches}", flush=True)
+    done("data parallel", t0)
+    return {"launches": launches, "err": err, "env_steps_s": rate,
+            "update_check": check, "phase_ms": {
+                "ppo no mesh": p["phase_ms"], "ppo 1 rank": o["phase_ms"],
+                "ppo 2 ranks": two[0]["phase_ms"], "cross_q 2 ranks": cq[0]["phase_ms"]},
+            "replicate_ms_per_update": cq[0].get("replicate_ms_per_update"),
+            "wall_s": {"ppo no mesh": plain_s, "ppo 1 rank": one_s, "ppo 2 ranks": two_s,
+                       "cross_q 2 ranks": cq_s}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3100,8 +3305,9 @@ def main(argv=None):
     xla = xla_on_card(args, dev, cpu, card)
     view = viewer_paths(args, dev, cpu, card, fat_cap, cap)
     gui = gui_path(args, dev, cpu, card)
+    dp = data_parallel(args, dev, cpu, card, cap)
 
-    # ---- 32. readings lines, kernels line and last line ----
+    # ---- 33. readings lines, kernels line and last line ----
     print(json.dumps({"offpolicy": {
         "update_check": off_update,
         "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
@@ -3116,6 +3322,7 @@ def main(argv=None):
                                        "grad_rate") if x in v} for k, v in liq_train.items()},
         "sequential": liq_seq}}), flush=True)
     print(json.dumps({"xla": xla, "viewer": view, "gui": gui}), flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kern = {
         "name": "sweep_envlast_slim",
@@ -3128,7 +3335,7 @@ def main(argv=None):
                      + jump["batched"]["launches"]
                      + sum(t["launches"] for t in on_train.values())
                      + sum(t["launches"] for t in liq_train.values())
-                     + view["eval_out_slim_launches"]),
+                     + view["eval_out_slim_launches"] + sum(dp["launches"].values())),
         "launches_by_path": {"batched canonical": main_run["launches"],
                              "batched scheduled": sched_run["launches"],
                              "walker eval": walker["launches"],
@@ -3137,11 +3344,12 @@ def main(argv=None):
                              "robot_jump batched": jump["batched"]["launches"],
                              **{f"{k} train": t["launches"] for k, t in on_train.items()},
                              **{f"{k} train": t["launches"] for k, t in liq_train.items()},
-                             "eval_walk --out eval": view["eval_out_slim_launches"]},
+                             "eval_walk --out eval": view["eval_out_slim_launches"],
+                             **{f"data parallel {k}": n for k, n in dp["launches"].items()}},
         "max_abs_err": max(*errs.values(), sched_err, walker["err"], train["err"],
                            *(t["err"] for t in off_train.values()), jump["kernel_err"],
                            *(t["err"] for t in on_train.values()),
-                           *(t["err"] for t in liq_train.values())),
+                           *(t["err"] for t in liq_train.values()), dp["err"]),
         "groups_checked": True,
         "tol": TOL,
         "ms": times.get("ms"),

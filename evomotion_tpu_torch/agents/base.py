@@ -26,6 +26,7 @@ from ..device import resolve
 from ..networks import distributions as D
 from ..networks.liquid import LiquidActor, LiquidCritic
 from ..networks.modules import Actor, Critic
+from ..parallel.mesh import replicate
 from ..train.checkpoint import load_component, save_component
 from ..train.ppo_batched import clip_by_global_norm_
 
@@ -72,10 +73,17 @@ class ComponentAgent(Agent):
 
     def _step(self, name: str, loss: torch.Tensor) -> torch.Tensor:
         """One Adam step of module ``name`` on ``loss`` (clipped by optax's
-        rule when ``clip`` is set); returns the loss, detached."""
-        params = list(getattr(self, name).parameters())
+        rule when ``clip`` is set); returns the loss, detached. Inside a
+        ``parallel.mesh`` every rank runs the same update on the same
+        (replicated) batch, and takes rank 0's gradients and f32 buffers
+        (BatchRenorm's statistics) before the step, so that the replicas
+        stay bit-equal whatever the kernels' run-to-run rounding."""
+        module = getattr(self, name)
+        params = list(module.parameters())
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = g
+        replicate([p.grad for p in params]
+                  + [b for b in module.buffers() if b.dtype == torch.float32])
         if self.clip is not None:
             clip_by_global_norm_(params, self.clip)
         getattr(self, f"{name}_opt").step()

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import env_rand
+
 
 class StepResult(NamedTuple):
     obs: torch.Tensor  # [B, obs]
@@ -65,10 +67,11 @@ def pick(x, i: int):
 def draws(table, reset_idx, n: int, generator, device):
     """``n`` U(0,1) draws per env for a reset: rows of the mt19937 reset
     table at ``reset_idx`` (wrapping) when the env has one, else from the
-    ``torch.Generator``. Returns [B, n] on ``device``."""
+    ``torch.Generator`` (in the global batch's shape inside a mesh,
+    ``parallel.mesh.env_rand``). Returns [B, n] on ``device``."""
     if table is not None:
         return table[reset_idx.long() % table.shape[0]]
     if generator is None:
         raise ValueError("an env without mt_seed needs a torch.Generator")
-    u = torch.rand((reset_idx.shape[0], n), generator=generator, device=generator.device)
+    u = env_rand((reset_idx.shape[0], n), generator, generator.device)
     return u.to(device)

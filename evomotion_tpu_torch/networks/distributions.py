@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import env_rand
+
 SIGMA_MIN = 1e-6
 SIGMA_MAX = 1e6
 ALPHA_BETA_BOUND = 5.0
@@ -86,10 +88,11 @@ def truncated_normal_cdf_interval(x, mu, sigma, min_value=-1.0, max_value=1.0, e
 
 def truncated_normal_sample(mu, sigma, generator=None, u=None, min_value=-1.0, max_value=1.0):
     """One draw per element of ``mu``: from the uniforms ``u`` (shape of
-    ``mu``, in [0, 1)) where given, else from ``generator``."""
+    ``mu``, in [0, 1)) where given, else from ``generator``, ``mu``'s first
+    axis being the env batch (``parallel.mesh.env_rand``)."""
     safe_sigma, alpha, beta = _safe(mu, sigma, min_value, max_value)
     if u is None:
-        u = torch.rand(mu.shape, generator=generator, device=mu.device)
+        u = env_rand(mu.shape, generator, mu.device)
     cdf = torch.clamp(_theta(alpha) + u * (_theta(beta) - _theta(alpha)), 0.0, 1.0)
     return torch.clamp(_theta_inv(cdf) * safe_sigma + mu, min_value, max_value)
 

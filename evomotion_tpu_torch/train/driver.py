@@ -133,6 +133,54 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
     including the update; ``EVOMOTION_TRACE_DIR=<dir>`` writes one
     ``torch.profiler`` trace of iteration 10. Runs on ``device`` (default
     ``cuda``)."""
+    dev = resolve(device)
+    trainer, horizon, critic_loss, save = make_batched_trainer(
+        env_seed, env_factory, agent_params, num_envs, agent_name, dev)
+    timer = StepTimer() if os.environ.get("EVOMOTION_PROFILE") else None
+    trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")
+    train_step = trainer.train_step_fn(timer=timer)
+    state = trainer.init()
+    os.makedirs(output_path, exist_ok=True)
+
+    t0 = time.time()
+    it_global = 0
+    for s in range(nb_saves):
+        for e in range(episodes):
+            it_global += 1
+            if trace_dir and it_global == 10:
+                with trace(trace_dir):
+                    state, metrics = train_step(state)
+                    float(metrics.actor_loss)
+            elif timer is not None:
+                with timer.phase("train_iter", block_on=dev):
+                    state, metrics = train_step(state)
+            else:
+                state, metrics = train_step(state)
+            if e % 10 == 0 or e == episodes - 1:
+                m = type(metrics)(*(float(x) for x in metrics))
+                steps_done = (s * episodes + e + 1) * horizon * num_envs
+                sps = steps_done / (time.time() - t0)
+                _progress(
+                    f"save {s} actor={m.actor_loss:.4f} critic={critic_loss(m):.4f} "
+                    f"r/step={m.mean_reward:.4f} {sps:,.0f} env-steps/s",
+                    e + 1, episodes, t0,
+                )
+        if timer is not None:
+            print(f"\n[profile] {timer.summary()}  "
+                  f"({timer.rate('train_iter', horizon * num_envs):,.0f} env-steps/s "
+                  f"incl. update)")
+        save(os.path.join(output_path, f"save_{s}"), state)
+    print()
+    return 0
+
+
+def make_batched_trainer(env_seed, env_factory, agent_params, num_envs, agent_name="ppo_gae",
+                         device=None):
+    """The batched trainer of :func:`train_batched` (its agents, keys and
+    defaults) over ``num_envs`` envs of ``env_factory`` on ``device``:
+    ``(trainer, horizon, critic_loss, save)``, ``critic_loss(metrics)`` the
+    progress line's critic loss and ``save(folder, state)`` the writer of
+    ``save_<i>/``."""
     offpolicy = agent_name in ("soft_actor_critic", "cross_q", "soft_actor_critic_liquid")
     step_buffer = agent_name in ("actor_critic", "ppo_vanilla")
     if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo", "ppo_gae_liquid")):
@@ -235,43 +283,7 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
             return m.critic_loss
 
         save = save_agent
-
-    timer = StepTimer() if os.environ.get("EVOMOTION_PROFILE") else None
-    trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")
-    train_step = trainer.train_step_fn(timer=timer)
-    state = trainer.init()
-    os.makedirs(output_path, exist_ok=True)
-
-    t0 = time.time()
-    it_global = 0
-    for s in range(nb_saves):
-        for e in range(episodes):
-            it_global += 1
-            if trace_dir and it_global == 10:
-                with trace(trace_dir):
-                    state, metrics = train_step(state)
-                    float(metrics.actor_loss)
-            elif timer is not None:
-                with timer.phase("train_iter", block_on=dev):
-                    state, metrics = train_step(state)
-            else:
-                state, metrics = train_step(state)
-            if e % 10 == 0 or e == episodes - 1:
-                m = type(metrics)(*(float(x) for x in metrics))
-                steps_done = (s * episodes + e + 1) * horizon * num_envs
-                sps = steps_done / (time.time() - t0)
-                _progress(
-                    f"save {s} actor={m.actor_loss:.4f} critic={critic_loss(m):.4f} "
-                    f"r/step={m.mean_reward:.4f} {sps:,.0f} env-steps/s",
-                    e + 1, episodes, t0,
-                )
-        if timer is not None:
-            print(f"\n[profile] {timer.summary()}  "
-                  f"({timer.rate('train_iter', horizon * num_envs):,.0f} env-steps/s "
-                  f"incl. update)")
-        save(os.path.join(output_path, f"save_{s}"), state)
-    print()
-    return 0
+    return trainer, horizon, critic_loss, save
 
 
 def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_path=None,

@@ -30,6 +30,13 @@ Random draws come from the state's ``torch.Generator`` (on the env's
 device), or from a :class:`Draws` the caller passes (the tests pass JAX's).
 Host reads: ``has_enough`` once per iteration; with ``nan_guard``, one per
 update (see ``train_step_fn``).
+
+Inside a ``parallel.mesh`` each rank steps its rows of the env batch, and
+the rollout is gathered into its global [T, N] block before the ring write
+(``mesh.gather_env``), so the replicated ring gets the same writes on every
+rank, in the one-process ring's order; every rank then draws and runs the
+same updates on the whole batch (CrossQ's BatchRenorm needs the whole
+batch's statistics), with rank 0's gradients (``agents.base``).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..agents.liquid_agents import SoftActorCriticLiquidAgent
 from ..agents.soft_actor_critic import SoftActorCriticAgent
 from ..networks import distributions as D
 from ..networks.liquid import first_x
+from ..parallel.mesh import gather_env
 from .checkpoint import load_component, save_component
 
 
@@ -203,6 +211,16 @@ def rollout(env, actor, state, n_steps: int, uniforms=None):
     return tuple(torch.stack(x) for x in zip(*steps))
 
 
+def gather_traj(traj):
+    """A rollout's trajectory (tensors [T, n, ...], then dicts of them) with
+    its env axis gathered from every rank of the active mesh
+    (``mesh.gather_env``, one collective round); ``traj`` outside a mesh."""
+    leaves = [x for item in traj for x in (item.values() if isinstance(item, dict) else [item])]
+    full = iter(gather_env(leaves, 1))
+    return tuple({k: next(full) for k in item} if isinstance(item, dict) else next(full)
+                 for item in traj)
+
+
 class BatchedOffPolicy:
     """algo: ``"soft_actor_critic"`` or ``"cross_q"``; ``env`` a batched env
     (``reset(n_envs, generator)``, ``step(state, action, generator)``,
@@ -290,7 +308,8 @@ class BatchedOffPolicy:
                 return x.reshape((block,) + x.shape[2:])
 
             with phase("rollout"):
-                traj = self.rollout(state, None if uniforms is None else uniforms.rollout)
+                traj = gather_traj(
+                    self.rollout(state, None if uniforms is None else uniforms.rollout))
                 t_obs, t_act, t_rew, t_done, t_next, t_valid = map(flat, traj[:6])
                 done_lens, wins = traj[6], traj[7]
                 # a liquid rollout's hidden states, {net: [T, N, n]}, follow

@@ -23,7 +23,9 @@ counted in env-time steps (the sequential agent counts its train steps).
 
 Random draws come from the state's ``torch.Generator`` (on the env's
 device), or from a :class:`StepDraws` the caller passes (the tests pass
-JAX's). Host reads: A2C's ``has_enough``, once per iteration.
+JAX's). Host reads: A2C's ``has_enough``, once per iteration. Inside a
+``parallel.mesh`` the rollout is gathered into its global block, as in
+``offpolicy_batched``, and both updates run replicated on it.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from ..agents.actor_critic import ActorCriticAgent
 from ..agents.ppo_vanilla import PpoVanillaAgent
-from .offpolicy_batched import Ring, rollout
+from .offpolicy_batched import Ring, gather_traj, rollout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +166,8 @@ class BatchedStepTrainer:
         def train_step(state: StepTrainState, uniforms: StepDraws | None = None):
             agent = state.agent
             with phase("rollout"):
-                traj = rollout(self.env, agent.actor, state, cfg.steps_per_iter,
-                               None if uniforms is None else uniforms.rollout)
+                traj = gather_traj(rollout(self.env, agent.actor, state, cfg.steps_per_iter,
+                                           None if uniforms is None else uniforms.rollout))
                 t_obs, t_act, t_rew, t_done, t_next, t_valid = (
                     x.reshape((block,) + x.shape[2:]) for x in traj[:6])
                 if state.ring is not None:

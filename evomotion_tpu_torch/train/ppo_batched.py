@@ -22,6 +22,11 @@ by ``max_norm / norm`` only when ``norm >= max_norm``), which
 ``torch.nn.utils.clip_grad_norm_`` does not follow. The rollout draws its
 actions from the generator, or from uniforms the caller passes (the tests
 pass JAX's draws).
+
+Inside a ``parallel.mesh`` (each rank stepping its rows of the env batch)
+the GAE statistics, the loss denominators, the obs statistics and the
+metrics are sums over the global batch, and the gradients are summed over
+the ranks before clipping; outside one those collectives are no-ops.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from ..convert import adam_tree, load_adam
 from ..networks import distributions as D
 from ..networks.modules import Actor, Critic
+from ..parallel.mesh import all_reduce_grads, psum
 from .checkpoint import load_component, save_component
 
 
@@ -137,10 +143,11 @@ def _update_obs_stats(state: PpoTrainState, obs, maskf) -> None:
     """Folds masked rollout frames [T, N, S] into the running mean and var
     (parallel Welford / Chan merge), in place."""
     m = maskf[..., 0]  # [T, N]
-    n_b = torch.clamp_min(m.sum(), 1.0)
     w = m[..., None]
-    mean_b = (obs * w).sum((0, 1)) / n_b
-    var_b = (((obs - mean_b) ** 2) * w).sum((0, 1)) / n_b
+    sums = psum(torch.cat([m.sum()[None], (obs * w).sum((0, 1))]))
+    n_b = torch.clamp_min(sums[0], 1.0)
+    mean_b = sums[1:] / n_b
+    var_b = psum((((obs - mean_b) ** 2) * w).sum((0, 1))) / n_b
     n_a = state.obs_count
     tot = n_a + n_b
     delta = mean_b - state.obs_mean
@@ -166,9 +173,10 @@ def gae_and_normalize(cfg: PpoConfig, values, rewards, dones, valids, bootstrap)
         g = deltas[t] + cfg.gamma * cfg.lam * (1.0 - donesf[t]) * maskf[t] * g
         advantages[t] = g
 
-    n = torch.clamp_min(maskf.sum(), 1.0)
-    mean = (advantages * maskf).sum() / n
-    var = (((advantages - mean) ** 2) * maskf).sum() / torch.clamp_min(n - 1.0, 1.0)
+    sums = psum(torch.stack([maskf.sum(), (advantages * maskf).sum()]))
+    n = torch.clamp_min(sums[0], 1.0)
+    mean = sums[1] / n
+    var = psum((((advantages - mean) ** 2) * maskf).sum()) / torch.clamp_min(n - 1.0, 1.0)
     advantages = (advantages - mean) / (torch.sqrt(var) + 1e-8)
     returns = advantages + values  # reference quirk: normalized adv
     return advantages, returns, maskf, n
@@ -371,7 +379,6 @@ class BatchedPpo:
         cfg = self.config
         actor = state.actor
         actions, log_probs = traj.action, traj.log_prob
-        rewards, dones = traj.reward, traj.done
         obs, advantages, returns, maskf, n = self.targets(state, traj)
         n_act = n * actions.shape[-1]
         if cfg.entropy_steps > 0:
@@ -402,18 +409,29 @@ class BatchedPpo:
             # fold this rollout's frames in AFTER the update so the next
             # rollout and its stored log_probs share one normalizer
             _update_obs_stats(state, traj.obs, maskf)
-        mask = maskf[..., 0]
-        n_done = dones.sum()
-        n_ended = torch.clamp_min((traj.done_len > 0).sum(), 1)
-        return PpoMetrics(
-            actor_loss=torch.stack(a_losses).mean(),
-            critic_loss=torch.stack(c_losses).mean(),
-            mean_reward=(rewards * mask).sum() / n,
-            episodes_done=n_done,
-            mean_episode_return=(rewards * mask).sum() / torch.clamp_min(n_done, 1.0),
-            mean_ep_len=traj.done_len.sum() / n_ended,
-            win_rate=traj.win.sum() / n_ended,
-        )
+        return ppo_metrics(a_losses, c_losses, traj, maskf, n)
+
+
+def ppo_metrics(a_losses, c_losses, traj, maskf, n) -> PpoMetrics:
+    """The metrics of an update from its per-epoch losses, its rollout
+    ``traj`` (``reward``, ``done``, ``done_len``, ``win``), the valid mask
+    and count: sums over the global batch inside a mesh (two collectives)."""
+    epochs = len(a_losses)
+    fsum = psum(torch.cat([torch.stack(a_losses), torch.stack(c_losses),
+                           (traj.reward * maskf[..., 0]).sum()[None]]))
+    isum = psum(torch.stack([traj.done.sum(), (traj.done_len > 0).sum(), traj.done_len.sum(),
+                             traj.win.sum()]))
+    n_done, reward_sum = isum[0], fsum[-1]
+    n_ended = torch.clamp_min(isum[1], 1)
+    return PpoMetrics(
+        actor_loss=fsum[:epochs].mean(),
+        critic_loss=fsum[epochs:2 * epochs].mean(),
+        mean_reward=reward_sum / n,
+        episodes_done=n_done,
+        mean_episode_return=reward_sum / torch.clamp_min(n_done, 1.0),
+        mean_ep_len=isum[2] / n_ended,
+        win_rate=isum[3] / n_ended,
+    )
 
 
 def save_agent(folder: str, state) -> None:
@@ -431,5 +449,6 @@ def save_agent(folder: str, state) -> None:
 def _step(opt: torch.optim.Adam, module, loss, max_norm: float) -> None:
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(module.parameters())
     clip_by_global_norm_(module.parameters(), max_norm)
     opt.step()

@@ -20,7 +20,10 @@ which in the reference never reach the agent.
 
 The JAX liquid trainer reads only PPO's core fields of its config; so does
 this one: ``obs_norm``, the sigma schedule, the entropy decay and the
-survival bonus of :class:`~.ppo_batched.PpoConfig` are ignored.
+survival bonus of :class:`~.ppo_batched.PpoConfig` are ignored. Inside a
+``parallel.mesh`` it takes the global sums of ``ppo_batched`` (the GAE
+statistics, loss denominators, gradients and metrics), each rank replaying
+its own rows' hidden states.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from ..networks import distributions as D
 from ..networks.liquid import LiquidActor, LiquidCritic, first_x
-from .ppo_batched import PpoConfig, PpoMetrics, _step, gae_and_normalize
+from .ppo_batched import PpoConfig, PpoMetrics, _step, gae_and_normalize, ppo_metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,15 +202,4 @@ class BatchedPpoLiquid:
             c_losses.append(c_loss.detach())
 
         state.iteration += 1
-        mask = maskf[..., 0]
-        n_done = traj.done.sum()
-        n_ended = torch.clamp_min((traj.done_len > 0).sum(), 1)
-        return PpoMetrics(
-            actor_loss=torch.stack(a_losses).mean(),
-            critic_loss=torch.stack(c_losses).mean(),
-            mean_reward=(traj.reward * mask).sum() / n,
-            episodes_done=n_done,
-            mean_episode_return=(traj.reward * mask).sum() / torch.clamp_min(n_done, 1.0),
-            mean_ep_len=traj.done_len.sum() / n_ended,
-            win_rate=traj.win.sum() / n_ended,
-        )
+        return ppo_metrics(a_losses, c_losses, traj, maskf, n)

@@ -2,7 +2,8 @@
 under it (the ``tools`` subpackage of profilers and walker tools, the
 networks, the agents, the replay buffers and the trainers too, the liquid
 tier's among them, the xla phase solves, the strict replay, the legacy
-converter, the viewer and the builder), and
+converter, the viewer and the builder, the data-parallel mesh and its
+worker), and
 chip_smoke.py
 must import neither ``jax`` nor any module of the JAX package
 ``evomotion_tpu``."""
@@ -63,7 +64,9 @@ assert {"evomotion_tpu_torch.tools.prof_kernel",
         "evomotion_tpu_torch.viewer.render3d",
         "evomotion_tpu_torch.viewer.live",
         "evomotion_tpu_torch.builder.builder_env",
-        "evomotion_tpu_torch.builder.web_editor"} <= set(names), names
+        "evomotion_tpu_torch.builder.web_editor",
+        "evomotion_tpu_torch.parallel.mesh",
+        "evomotion_tpu_torch.tools.multihost_worker"} <= set(names), names
 """
 
 
