@@ -1,0 +1,79 @@
+"""Readings that the limits of ``limits/<cell>.json`` are set from.
+
+    python3 portbench/calibrate.py --workload <name> --seeds <a,b,...> [--out <file>]
+
+For each seed, in one process: the program's set-up through its checked
+iterations, then the numbers compared for
+
+- ``program``: the program against the reference (sound runs: the lower
+  readings);
+- ``control``: the reference one precision below the configuration's
+  (TF32 matrix products, J columns rounded to fp8 e4m3) in the program's
+  place;
+- ``half_batch``: the reference's updates with half of the env batch left
+  out, the mean taken over the rest (a planted fault).
+
+A state left unchanged reads 1 on ``change`` by its definition and needs no
+run. Each seed prints one JSON line (also appended to ``--out``). The
+benchmark's own runs never run this. Needs the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import torch  # noqa: E402
+
+from portbench import harness  # noqa: E402
+from portbench.reference import compare  # noqa: E402
+
+
+def readings(cell: harness.Cell, seed: int, device) -> dict:
+    adapter = harness.adapter_for(cell, seed, device)
+    t0 = time.perf_counter()
+    adapter.setup()
+    t_setup = time.perf_counter() - t0
+    adapter.release()
+    cap = adapter.cap
+    t0 = time.perf_counter()
+    ref = compare.reference_outputs(cell.config, cap, device)
+    t_ref = time.perf_counter() - t0
+    out = {"seed": seed, "setup_s": t_setup, "reference_s": t_ref,
+           "program": compare.gaps(compare.program_outputs(cap), ref)}
+    out["control"] = compare.gaps(compare.reference_outputs(
+        cell.config, cap, device, tf32=True, row_dtype="fp8"), ref)
+    out["half_batch"] = compare.gaps(compare.reference_outputs(
+        cell.config, cap, device, half=True, physics=False), ref)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("calibrate: needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.set_num_threads(harness.THREADS)
+    cell = harness.Cell(args.workload)
+    dev = torch.device("cuda")
+    for seed in (int(s) for s in args.seeds.split(",")):
+        line = json.dumps({"workload": cell.name, **readings(cell, seed, dev)})
+        print(line, flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
