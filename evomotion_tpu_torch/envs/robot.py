@@ -57,6 +57,7 @@ from ..physics.engine import PhysicsState, StepDiagnostics, default_solver, init
 from ..physics.perenv import PerEnvStep
 from ..physics.robot_compiler import compile_robot
 from ..serialize import robot as robot_json
+from ..train.profiling import span
 from .base import StepResult, draws, get_value, where
 
 DT = 1.0 / 60.0
@@ -311,33 +312,35 @@ class _RobotEnvBase:
 
     def reset(self, n_envs: int, generator: torch.Generator | None = None):
         """Blocking reset of ``n_envs`` envs (Environment::reset): teleport,
-        settle ``settle_total`` physics steps with motors off, first obs."""
-        dev = self.device
-        m = self.model.n_slider
-        i32 = dict(dtype=torch.int32, device=dev)
-        physics = init_state(self.model, n_envs, dev)
-        physics = self._teleported(physics, self._draws(torch.zeros(n_envs, **i32), generator))
-        targets = torch.zeros((n_envs, m), device=dev)
-        off = torch.zeros(n_envs, dtype=torch.bool, device=dev)
-        for _ in range(self.settle_total):
-            physics = self._phys_step(physics, targets, off)[0]
-        nm = len(self.meta.member_bodies)
-        state = RobotEnvState(
-            physics=physics,
-            reset_idx=torch.ones(n_envs, **i32),
-            curr_step=torch.zeros(n_envs, **i32),
-            remaining_steps=torch.full((n_envs,), self.initial_remaining, **i32),
-            last_lin_vel=torch.zeros((n_envs, nm, 3), device=dev),
-            last_ang_vel=torch.zeros((n_envs, nm, 3), device=dev),
-            touch_taken=off.clone(),
-            motor_target=torch.zeros((n_envs, m), device=dev),
-            motors_on=off.clone(),
-            settle_left=torch.zeros(n_envs, **i32),
-            diag_slider_pos=torch.zeros((n_envs, m), device=dev),
-            diag_slider_imp=torch.zeros((n_envs, m), device=dev),
-            diag_p2p_imp=torch.zeros((n_envs, 2 * m), device=dev),
-        )
-        return self._compute_step(state)
+        settle ``settle_total`` physics steps with motors off, first obs
+        (the span ``env.reset``)."""
+        with span("env.reset", block_on=self.device):
+            dev = self.device
+            m = self.model.n_slider
+            i32 = dict(dtype=torch.int32, device=dev)
+            physics = init_state(self.model, n_envs, dev)
+            physics = self._teleported(physics, self._draws(torch.zeros(n_envs, **i32), generator))
+            targets = torch.zeros((n_envs, m), device=dev)
+            off = torch.zeros(n_envs, dtype=torch.bool, device=dev)
+            for _ in range(self.settle_total):
+                physics = self._phys_step(physics, targets, off)[0]
+            nm = len(self.meta.member_bodies)
+            state = RobotEnvState(
+                physics=physics,
+                reset_idx=torch.ones(n_envs, **i32),
+                curr_step=torch.zeros(n_envs, **i32),
+                remaining_steps=torch.full((n_envs,), self.initial_remaining, **i32),
+                last_lin_vel=torch.zeros((n_envs, nm, 3), device=dev),
+                last_ang_vel=torch.zeros((n_envs, nm, 3), device=dev),
+                touch_taken=off.clone(),
+                motor_target=torch.zeros((n_envs, m), device=dev),
+                motors_on=off.clone(),
+                settle_left=torch.zeros(n_envs, **i32),
+                diag_slider_pos=torch.zeros((n_envs, m), device=dev),
+                diag_slider_imp=torch.zeros((n_envs, m), device=dev),
+                diag_p2p_imp=torch.zeros((n_envs, 2 * m), device=dev),
+            )
+            return self._compute_step(state)
 
     def _store_diag(self, state: RobotEnvState, diag: StepDiagnostics) -> RobotEnvState:
         p2p = torch.stack(
@@ -352,43 +355,49 @@ class _RobotEnvBase:
 
     def step(self, state: RobotEnvState, action, generator: torch.Generator | None = None):
         """One env step for every env: action [B, M] in [-1, 1]. ``generator``
-        draws the tilt of envs whose episode ends (not needed with mt_seed)."""
-        settling = state.settle_left > 0
-        # guard: a NaN action would propagate into the persistent motor
-        # target (held through resets) and re-poison every future episode
-        action = torch.where(torch.isfinite(action), action, 0.0)
-        target = torch.where(settling[:, None], state.motor_target, action * self._speed)
-        powered = torch.where(settling, state.motors_on, True)
-        physics, diag = self._phys_step(state.physics, target, powered)
-        state = self._store_diag(
-            state._replace(physics=physics, motor_target=target, motors_on=powered), diag
-        )
+        draws the tilt of envs whose episode ends (not needed with mt_seed).
+        Spans: ``env.step`` around it, ``env.observe`` (observations,
+        rewards and flags of the three outcomes) and ``env.autoreset``
+        (the ended episodes' draws and teleports, and the selection)."""
+        with span("env.step"):
+            settling = state.settle_left > 0
+            # guard: a NaN action would propagate into the persistent motor
+            # target (held through resets) and re-poison every future episode
+            action = torch.where(torch.isfinite(action), action, 0.0)
+            target = torch.where(settling[:, None], state.motor_target, action * self._speed)
+            powered = torch.where(settling, state.motors_on, True)
+            physics, diag = self._phys_step(state.physics, target, powered)
+            with span("env.observe"):
+                state = self._store_diag(
+                    state._replace(physics=physics, motor_target=target, motors_on=powered),
+                    diag)
+                settle_state = state._replace(settle_left=state.settle_left - 1)
+                false = torch.zeros_like(settling)
+                settle_res = StepResult(
+                    obs=self._obs(state)[0],
+                    reward=torch.zeros_like(state.physics.pos[:, 0, 0]),
+                    done=false, valid=false, win=false,
+                )
+                finishing = settling & (state.settle_left <= 1)
+                fin_state, fin_res = self._compute_step(settle_state)
+                fin_res = fin_res._replace(done=false, valid=~false, win=false)
+                run_state, run_res = self._compute_step(state)
 
-        settle_state = state._replace(settle_left=state.settle_left - 1)
-        false = torch.zeros_like(settling)
-        settle_res = StepResult(
-            obs=self._obs(state)[0],
-            reward=torch.zeros_like(state.physics.pos[:, 0, 0]),
-            done=false, valid=false, win=false,
-        )
-        finishing = settling & (state.settle_left <= 1)
-        fin_state, fin_res = self._compute_step(settle_state)
-        fin_res = fin_res._replace(done=false, valid=~false, win=false)
+            with span("env.autoreset"):
+                u = self._draws(run_state.reset_idx, generator)
+                done_state = run_state._replace(
+                    physics=self._teleported(run_state.physics, u),
+                    reset_idx=run_state.reset_idx + 1,
+                    curr_step=torch.zeros_like(run_state.curr_step),
+                    remaining_steps=torch.full_like(run_state.remaining_steps,
+                                                    self.initial_remaining),
+                    settle_left=torch.full_like(run_state.settle_left, self.settle_total),
+                )
+                run_state = where(run_res.done, done_state, run_state)
 
-        run_state, run_res = self._compute_step(state)
-        u = self._draws(run_state.reset_idx, generator)
-        done_state = run_state._replace(
-            physics=self._teleported(run_state.physics, u),
-            reset_idx=run_state.reset_idx + 1,
-            curr_step=torch.zeros_like(run_state.curr_step),
-            remaining_steps=torch.full_like(run_state.remaining_steps, self.initial_remaining),
-            settle_left=torch.full_like(run_state.settle_left, self.settle_total),
-        )
-        run_state = where(run_res.done, done_state, run_state)
-
-        out_state = where(settling, where(finishing, fin_state, settle_state), run_state)
-        out_res = where(settling, where(finishing, fin_res, settle_res), run_res)
-        return out_state, out_res
+                out_state = where(settling, where(finishing, fin_state, settle_state), run_state)
+                out_res = where(settling, where(finishing, fin_res, settle_res), run_res)
+            return out_state, out_res
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..train.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -38,7 +40,9 @@ class NvccLibrary:
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
-        """Compile the source unless a library of this source exists."""
+        """Compile the source unless a library of this source exists; the
+        span ``kernels.build`` holds an nvcc run (a library found opens
+        none)."""
         so = self.library_path()
         log = so.with_suffix(".log")
         if so.exists():
@@ -50,7 +54,8 @@ class NvccLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with span("kernels.build"):
+            res = subprocess.run(cmd, capture_output=True, text=True)
         self.build_log = res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_log}")

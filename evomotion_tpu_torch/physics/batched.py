@@ -27,6 +27,7 @@ import torch
 
 from ..device import resolve
 from ..kernels import sweep as sp
+from ..train.profiling import span
 from . import engine as E
 from .maths import _ANGULAR_MOTION_THRESHOLD
 from .model import MAX_CONTACTS_PER_PAIR, PhysicsModel
@@ -966,121 +967,127 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
 
     iinv_world = _iinv_world(st, quat)
 
-    # contacts + warm-start match
-    pt_k, n_k, gap_k, active, vid_k = detect_contacts(model, st, pos, quat)
-    warm = _warm_start_match(vid_k, active, contact_vid, contact_lambda)
+    with span("physics.contacts"):
+        pt_k, n_k, gap_k, active, vid_k = detect_contacts(model, st, pos, quat)
+        warm = _warm_start_match(vid_k, active, contact_vid, contact_lambda)
 
-    joint_j, joint_s, slider_lin_pos = build_joint_rows(
-        model, st, pos, quat, motor_target, motor_enabled, dt, j_dtype=j_dtype,
-    )
-    nrj = model.n_rows
+    with span("physics.joint_rows"):
+        joint_j, joint_s, slider_lin_pos = build_joint_rows(
+            model, st, pos, quat, motor_target, motor_enabled, dt, j_dtype=j_dtype,
+        )
+        nrj = model.n_rows
 
-    vel6 = torch.cat([lin_vel, ang_vel], dim=1)  # [NB, 6, B]
+        vel6 = torch.cat([lin_vel, ang_vel], dim=1)  # [NB, 6, B]
 
-    # joint warm starting (strict mode only): the slim rows carry no dv, so
-    # Minv*J^T is computed here
-    if model.strict_bullet and nrj:
-        jl0 = joint_lambda * E.WARMSTART  # [NRJ, B]
-        j_flat = joint_j.to(torch.float32).reshape(nrj, 4, 3, b)
-        dv_a_j, dv_b_j = _finish_dv(st.ja, st.jb, st.j_inv_m_a, st.j_inv_m_b,
-                                    j_flat, iinv_world)
-        dva = dv_a_j.reshape(nrj, 6, b) * jl0[:, None]
-        dvb = dv_b_j.reshape(nrj, 6, b) * jl0[:, None]
-        vel6 = vel6 + torch.zeros_like(vel6).index_add(0, st.ja, dva).index_add(0, st.jb, dvb)
-    else:
-        jl0 = torch.zeros((nrj, b), device=dev)
+        # joint warm starting (strict mode only): the slim rows carry no dv,
+        # so Minv*J^T is computed here
+        if model.strict_bullet and nrj:
+            jl0 = joint_lambda * E.WARMSTART  # [NRJ, B]
+            j_flat = joint_j.to(torch.float32).reshape(nrj, 4, 3, b)
+            dv_a_j, dv_b_j = _finish_dv(st.ja, st.jb, st.j_inv_m_a, st.j_inv_m_b,
+                                        j_flat, iinv_world)
+            dva = dv_a_j.reshape(nrj, 6, b) * jl0[:, None]
+            dvb = dv_b_j.reshape(nrj, 6, b) * jl0[:, None]
+            vel6 = vel6 + torch.zeros_like(vel6).index_add(0, st.ja, dva).index_add(
+                0, st.jb, dvb)
+        else:
+            jl0 = torch.zeros((nrj, b), device=dev)
 
     zrow = (torch.zeros((0, sp.ROW_J, b), dtype=j_dtype, device=dev),
             torch.zeros((0, sp.ROW_S, b), device=dev))
-    if n_pair:
-        body = st.fl_a
-        r_a = pt_k - pos[body][:, None]
-        rel_vel = lin_vel[body][:, None] + _cross(ang_vel[body][:, None], r_a)  # B static
-        t1, t2, t2_en = _friction_dirs(n_k, rel_vel, model.strict_bullet)
-        actf = active.to(torch.float32)
-        inv_m = st.fl_inv_m  # [NP, 1, 1, 1]
-        ii = iinv_world[body]  # [NP, 3, 3, B]
-
-        def contact_rows(d):
-            # J gated by the active flag; dv only feeds the warm start
-            j_ang = _cross(r_a, d)
-            zeros = torch.zeros_like(d)
-            gate = actf[:, :, None]
-            j = torch.stack([d * gate, j_ang * gate, zeros, zeros], dim=2)  # [NP,K,4,3,B]
-            dv_lin = inv_m * j[:, :, 0]
-            dv_ang = (ii[:, None] * j[:, :, 1][:, :, None]).sum(3)
-            return j, torch.stack([dv_lin, dv_ang], dim=2)  # dv [NP, K, 2, 3, B]
-
-        jn, dv_n = contact_rows(n_k)
-        jt1, dv_t1 = contact_rows(t1)
-        jt2, dv_t2 = contact_rows(t2)
-        jt2 = jt2 * t2_en
-        dv_t2 = dv_t2 * t2_en
-        rhs_n = torch.where(gap_k > 0, -gap_k / dt, 0.0)
-        rhs_push = torch.where(gap_k < 0, -gap_k * E.ERP2 / dt, 0.0)
-        zeros_pk = torch.zeros((n_pair * k, b), device=dev)
-        inf_pk = torch.full((n_pair * k, b), _INF, device=dev)
-        normal_packed = _pack(
-            jn.reshape(n_pair * k, 4, 3, b), rhs_n.reshape(-1, b), zeros_pk, inf_pk,
-            rhs_push.reshape(-1, b), j_dtype=j_dtype,
-        )
-        jt = torch.stack([jt1, jt2], dim=2)  # [NP, K, 2, 4, 3, B]
-        zeros_f = torch.zeros((n_pair * k * 2, b), device=dev)
-        friction_packed = _pack(
-            jt.reshape(n_pair * k * 2, 4, 3, b), zeros_f, zeros_f, zeros_f, j_dtype=j_dtype,
-        )
-    else:
-        normal_packed = friction_packed = zrow
-
-    if n_dyn:
-        member_normal, member_friction, member_x = _member_contact_rows(
-            model, st, pos, quat, lin_vel, ang_vel, iinv_world, dt,
-            warm_cache=(dyn_vid, dyn_lambda), j_dtype=j_dtype,
-        )
-    else:
-        member_normal = member_friction = zrow
-        member_x = None
-
-    # ---- warm start contact impulses into velocities ----
     lam_n0 = warm[..., 0, :]  # [NP, K, B]
     lam_t0 = warm[..., 1:, :]  # [NP, K, 2, B]
-    if n_pair:
-        imp = (
-            dv_n * lam_n0[:, :, None, None]
-            + dv_t1 * lam_t0[:, :, 0][:, :, None, None]
-            + dv_t2 * lam_t0[:, :, 1][:, :, None, None]
-        ).sum(1)  # [NP, 2, 3, B]
-        vel6 = vel6 + torch.zeros_like(vel6).index_add(0, st.fl_a, imp.reshape(n_pair, 6, b))
-    if n_dyn:
-        vel6 = vel6 + member_x["imp6"]
+    with span("physics.contact_rows"):
+        if n_pair:
+            body = st.fl_a
+            r_a = pt_k - pos[body][:, None]
+            rel_vel = lin_vel[body][:, None] + _cross(ang_vel[body][:, None], r_a)  # B static
+            t1, t2, t2_en = _friction_dirs(n_k, rel_vel, model.strict_bullet)
+            actf = active.to(torch.float32)
+            inv_m = st.fl_inv_m  # [NP, 1, 1, 1]
+            ii = iinv_world[body]  # [NP, 3, 3, B]
+
+            def contact_rows(d):
+                # J gated by the active flag; dv only feeds the warm start
+                j_ang = _cross(r_a, d)
+                zeros = torch.zeros_like(d)
+                gate = actf[:, :, None]
+                j = torch.stack([d * gate, j_ang * gate, zeros, zeros], dim=2)  # [NP,K,4,3,B]
+                dv_lin = inv_m * j[:, :, 0]
+                dv_ang = (ii[:, None] * j[:, :, 1][:, :, None]).sum(3)
+                return j, torch.stack([dv_lin, dv_ang], dim=2)  # dv [NP, K, 2, 3, B]
+
+            jn, dv_n = contact_rows(n_k)
+            jt1, dv_t1 = contact_rows(t1)
+            jt2, dv_t2 = contact_rows(t2)
+            jt2 = jt2 * t2_en
+            dv_t2 = dv_t2 * t2_en
+            rhs_n = torch.where(gap_k > 0, -gap_k / dt, 0.0)
+            rhs_push = torch.where(gap_k < 0, -gap_k * E.ERP2 / dt, 0.0)
+            zeros_pk = torch.zeros((n_pair * k, b), device=dev)
+            inf_pk = torch.full((n_pair * k, b), _INF, device=dev)
+            normal_packed = _pack(
+                jn.reshape(n_pair * k, 4, 3, b), rhs_n.reshape(-1, b), zeros_pk, inf_pk,
+                rhs_push.reshape(-1, b), j_dtype=j_dtype,
+            )
+            jt = torch.stack([jt1, jt2], dim=2)  # [NP, K, 2, 4, 3, B]
+            zeros_f = torch.zeros((n_pair * k * 2, b), device=dev)
+            friction_packed = _pack(
+                jt.reshape(n_pair * k * 2, 4, 3, b), zeros_f, zeros_f, zeros_f,
+                j_dtype=j_dtype,
+            )
+            # warm start the floor contacts' impulses into the velocities,
+            # before the members' (the order the sums have always run in)
+            imp = (
+                dv_n * lam_n0[:, :, None, None]
+                + dv_t1 * lam_t0[:, :, 0][:, :, None, None]
+                + dv_t2 * lam_t0[:, :, 1][:, :, None, None]
+            ).sum(1)  # [NP, 2, 3, B]
+            vel6 = vel6 + torch.zeros_like(vel6).index_add(0, st.fl_a,
+                                                           imp.reshape(n_pair, 6, b))
+        else:
+            normal_packed = friction_packed = zrow
+
+    with span("physics.member"):
+        if n_dyn:
+            member_normal, member_friction, member_x = _member_contact_rows(
+                model, st, pos, quat, lin_vel, ang_vel, iinv_world, dt,
+                warm_cache=(dyn_vid, dyn_lambda), j_dtype=j_dtype,
+            )
+            vel6 = vel6 + member_x["imp6"]
+        else:
+            member_normal = member_friction = zrow
+            member_x = None
 
     # ---- velocity pass + fused split impulse: one sweep, in visit order ----
-    n_full = nrj + n_pair * k + n_dyn + n_pair * k * 2 + n_dyn * 2
-    parts = [(joint_j, joint_s), normal_packed, member_normal, friction_packed,
-             member_friction]
-    all_rows_j = torch.cat([p[0] for p in parts], 0)
-    all_rows_s = torch.cat([p[1] for p in parts], 0)
-    m_lam_n0 = member_x["lam_n0"] if n_dyn else torch.zeros((0, b), device=dev)
-    m_lam_t0 = (
-        member_x["lam_t0"].reshape(n_dyn * 2, b)  # contact-major, dir-minor
-        if n_dyn else torch.zeros((0, b), device=dev)
-    )
-    lam0 = torch.cat(
-        [jl0, lam_n0.reshape(n_pair * k, b), m_lam_n0,
-         lam_t0.reshape(n_pair * k * 2, b), m_lam_t0], 0,
-    )
-    assert all_rows_j.shape[0] == n_full == st.n_full, (all_rows_j.shape, n_full)
-    all_rows_j, all_rows_s, lam0 = st.row_order.to_visit(all_rows_j, all_rows_s, lam0)
-    vel_out, lam_all, push6 = sp.solver_sweep_envlast_slim(
-        all_rows_j.contiguous(), all_rows_s.contiguous(),
-        vel6.reshape(nb * 6, b).contiguous(), lam0.contiguous(),
-        iinv_world.reshape(nb * 9, b).contiguous(), st.sweep_meta, model.n_iterations,
-    )
-    lam_all = st.row_order.to_canonical(lam_all)
+    with span("physics.sweep"):
+        n_full = nrj + n_pair * k + n_dyn + n_pair * k * 2 + n_dyn * 2
+        parts = [(joint_j, joint_s), normal_packed, member_normal, friction_packed,
+                 member_friction]
+        all_rows_j = torch.cat([p[0] for p in parts], 0)
+        all_rows_s = torch.cat([p[1] for p in parts], 0)
+        m_lam_n0 = member_x["lam_n0"] if n_dyn else torch.zeros((0, b), device=dev)
+        m_lam_t0 = (
+            member_x["lam_t0"].reshape(n_dyn * 2, b)  # contact-major, dir-minor
+            if n_dyn else torch.zeros((0, b), device=dev)
+        )
+        lam0 = torch.cat(
+            [jl0, lam_n0.reshape(n_pair * k, b), m_lam_n0,
+             lam_t0.reshape(n_pair * k * 2, b), m_lam_t0], 0,
+        )
+        assert all_rows_j.shape[0] == n_full == st.n_full, (all_rows_j.shape, n_full)
+        all_rows_j, all_rows_s, lam0 = st.row_order.to_visit(all_rows_j, all_rows_s, lam0)
+        vel_out, lam_all, push6 = sp.solver_sweep_envlast_slim(
+            all_rows_j.contiguous(), all_rows_s.contiguous(),
+            vel6.reshape(nb * 6, b).contiguous(), lam0.contiguous(),
+            iinv_world.reshape(nb * 9, b).contiguous(), st.sweep_meta, model.n_iterations,
+        )
+        lam_all = st.row_order.to_canonical(lam_all)
 
-    return _finish_step(model, st, dt, pos, quat, vel_out.reshape(nb, 6, b),
-                        push6.reshape(nb, 6, b), lam_all, slider_lin_pos, gap_k, active,
-                        vid_k, member_x, contact_lambda, contact_vid, dyn_lambda, dyn_vid)
+    with span("physics.integrate"):
+        return _finish_step(model, st, dt, pos, quat, vel_out.reshape(nb, 6, b),
+                            push6.reshape(nb, 6, b), lam_all, slider_lin_pos, gap_k, active,
+                            vid_k, member_x, contact_lambda, contact_vid, dyn_lambda, dyn_vid)
 
 
 def _finish_step(model: PhysicsModel, st: Statics, dt: float, pos, quat, vel6, push6,
@@ -1178,21 +1185,23 @@ class BatchedStep:
 
     def __call__(self, state: E.PhysicsState, motor_target, motor_enabled):
         """state: PhysicsState with env axis first; motor_target [B, NS] f32,
-        motor_enabled [B, NS] bool. Returns (PhysicsState, StepDiagnostics)."""
+        motor_enabled [B, NS] bool. Returns (PhysicsState, StepDiagnostics).
+        The span ``physics.step`` holds the call, the axis moves included."""
         def last(x):
             return x.movedim(0, -1)
-
-        out = self._run(*(last(x) for x in state), last(motor_target), last(motor_enabled))
-        pos, quat, lin, ang, cl, vid, jlam, dl, dv, diag = out
 
         def first(x):
             return x.movedim(-1, 0).contiguous()
 
-        return (
-            E.PhysicsState(first(pos), first(quat), first(lin), first(ang), first(cl),
-                           first(vid), first(jlam), first(dl), first(dv)),
-            E.StepDiagnostics(*(first(x) for x in diag)),
-        )
+        with span("physics.step"):
+            out = self._run(*(last(x) for x in state), last(motor_target),
+                            last(motor_enabled))
+            pos, quat, lin, ang, cl, vid, jlam, dl, dv, diag = out
+            return (
+                E.PhysicsState(first(pos), first(quat), first(lin), first(ang), first(cl),
+                               first(vid), first(jlam), first(dl), first(dv)),
+                E.StepDiagnostics(*(first(x) for x in diag)),
+            )
 
     def _run(self, *state_envlast):
         if self.solve_full is not None:

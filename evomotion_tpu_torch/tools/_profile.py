@@ -7,6 +7,8 @@ import os
 import subprocess
 import tempfile
 
+from ..train.profiling import DEVICE_CATS
+
 
 def card_name() -> str:
     """``name, power limit`` of the card as nvidia-smi gives them."""
@@ -28,4 +30,4 @@ def device_events(prof):
             trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     return [(e["name"], float(e.get("dur", 0.0))) for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]

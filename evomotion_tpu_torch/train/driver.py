@@ -16,6 +16,7 @@ sequential loops serve every agent of the factory, the liquid ones too.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -32,7 +33,7 @@ from .offpolicy_batched import (
 from .onpolicy_step_batched import BatchedStepTrainer, StepTrainerConfig
 from .ppo_batched import BatchedPpo, PpoConfig, save_agent
 from .ppo_liquid_batched import BatchedPpoLiquid, PpoLiquidConfig
-from .profiling import StepTimer, trace
+from .profiling import StepTimer, recording, span, trace
 
 
 def _progress(prefix: str, i: int, total: int, t0: float) -> None:
@@ -130,46 +131,59 @@ def train_batched(env_seed, env_factory, agent_params, num_envs, episodes, nb_sa
     agent's four components. ``EVOMOTION_PROFILE=1``
     times each iteration and its rollout and update phases (``StepTimer``,
     waiting for the card) and prints them at each save with env-steps/s
-    including the update; ``EVOMOTION_TRACE_DIR=<dir>`` writes one
-    ``torch.profiler`` trace of iteration 10. Runs on ``device`` (default
+    including the update (the ``[profile]`` line: ``rollout``, ``update``
+    and ``train_iter``), and records the program's spans from the trainer's
+    build on (``profiling.recording``; the set-up spans wait for the card)
+    into the ``[spans]`` line: host seconds and calls of each span, e.g.
+    ``setup.trainer``, ``env.reset``, ``kernels.build`` (an nvcc run) and
+    ``physics.step``. ``EVOMOTION_TRACE_DIR=<dir>`` writes one
+    ``torch.profiler`` trace of iteration 10, ``<dir>/trace.json``, with
+    the program's spans as ranges on the card's clock; ``python -m
+    evomotion_tpu_torch.train.profiling <dir>/trace.json`` charges its
+    kernels and the card's idle time to them. Runs on ``device`` (default
     ``cuda``)."""
     dev = resolve(device)
-    trainer, horizon, critic_loss, save = make_batched_trainer(
-        env_seed, env_factory, agent_params, num_envs, agent_name, dev)
     timer = StepTimer() if os.environ.get("EVOMOTION_PROFILE") else None
-    trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")
-    train_step = trainer.train_step_fn(timer=timer)
-    state = trainer.init()
-    os.makedirs(output_path, exist_ok=True)
+    spans = StepTimer()
+    with contextlib.nullcontext() if timer is None else recording(spans):
+        trainer, horizon, critic_loss, save = make_batched_trainer(
+            env_seed, env_factory, agent_params, num_envs, agent_name, dev)
+        trace_dir = os.environ.get("EVOMOTION_TRACE_DIR")
+        train_step = trainer.train_step_fn(timer=timer)
+        state = trainer.init()
+        os.makedirs(output_path, exist_ok=True)
 
-    t0 = time.time()
-    it_global = 0
-    for s in range(nb_saves):
-        for e in range(episodes):
-            it_global += 1
-            if trace_dir and it_global == 10:
-                with trace(trace_dir):
+        t0 = time.time()
+        it_global = 0
+        for s in range(nb_saves):
+            for e in range(episodes):
+                it_global += 1
+                if trace_dir and it_global == 10:
+                    with trace(trace_dir):
+                        state, metrics = train_step(state)
+                        float(metrics.actor_loss)
+                elif timer is not None:
+                    with timer.phase("train_iter", block_on=dev):
+                        state, metrics = train_step(state)
+                else:
                     state, metrics = train_step(state)
-                    float(metrics.actor_loss)
-            elif timer is not None:
-                with timer.phase("train_iter", block_on=dev):
-                    state, metrics = train_step(state)
-            else:
-                state, metrics = train_step(state)
-            if e % 10 == 0 or e == episodes - 1:
-                m = type(metrics)(*(float(x) for x in metrics))
-                steps_done = (s * episodes + e + 1) * horizon * num_envs
-                sps = steps_done / (time.time() - t0)
-                _progress(
-                    f"save {s} actor={m.actor_loss:.4f} critic={critic_loss(m):.4f} "
-                    f"r/step={m.mean_reward:.4f} {sps:,.0f} env-steps/s",
-                    e + 1, episodes, t0,
-                )
-        if timer is not None:
-            print(f"\n[profile] {timer.summary()}  "
-                  f"({timer.rate('train_iter', horizon * num_envs):,.0f} env-steps/s "
-                  f"incl. update)")
-        save(os.path.join(output_path, f"save_{s}"), state)
+                if e % 10 == 0 or e == episodes - 1:
+                    m = type(metrics)(*(float(x) for x in metrics))
+                    steps_done = (s * episodes + e + 1) * horizon * num_envs
+                    sps = steps_done / (time.time() - t0)
+                    _progress(
+                        f"save {s} actor={m.actor_loss:.4f} critic={critic_loss(m):.4f} "
+                        f"r/step={m.mean_reward:.4f} {sps:,.0f} env-steps/s",
+                        e + 1, episodes, t0,
+                    )
+            if timer is not None:
+                print(f"\n[profile] {timer.summary()}  "
+                      f"({timer.rate('train_iter', horizon * num_envs):,.0f} env-steps/s "
+                      f"incl. update)")
+                print("[spans] " + ", ".join(
+                    f"{k} {spans.totals[k]:.3f} s in {spans.counts[k]} calls"
+                    for k in sorted(spans.totals)))
+            save(os.path.join(output_path, f"save_{s}"), state)
     print()
     return 0
 
@@ -180,110 +194,111 @@ def make_batched_trainer(env_seed, env_factory, agent_params, num_envs, agent_na
     defaults) over ``num_envs`` envs of ``env_factory`` on ``device``:
     ``(trainer, horizon, critic_loss, save)``, ``critic_loss(metrics)`` the
     progress line's critic loss and ``save(folder, state)`` the writer of
-    ``save_<i>/``."""
-    offpolicy = agent_name in ("soft_actor_critic", "cross_q", "soft_actor_critic_liquid")
-    step_buffer = agent_name in ("actor_critic", "ppo_vanilla")
-    if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo", "ppo_gae_liquid")):
-        raise SystemExit("batched training supports ppo_gae/ppo_gae_liquid/actor_critic/"
-                         "ppo_vanilla/soft_actor_critic/soft_actor_critic_liquid/cross_q, "
-                         f"not {agent_name}")
-    dev = resolve(device)
-    # mt_parity off: the envs draw their resets from the trainer's generator
-    # (a shared mt19937 table would tilt every env identically)
-    env = env_factory.make(env_seed, mt_parity=False, device=dev, per_env_step=False)
-    g = lambda k, d: type(d)(agent_params[k]) if k in agent_params else d  # noqa: E731
-    if offpolicy:
-        common = dict(
-            batch_size=g("batch_size", 256),
-            epoch=g("epoch", 1),
-            learning_rate=g("learning_rate", 3e-4),
-            gamma=g("gamma", 0.99),
-            tau=g("tau", 0.005),
-            train_every=g("train_every", 1),
-            steps_per_iter=g("horizon", 64),
-            n_envs=num_envs,
-        )
-        if agent_name == "soft_actor_critic_liquid":
-            cfg = OffPolicyLiquidConfig(
-                neurons=g("neuron_number", 64),
-                unfolding_steps=g("unfolding_steps", 6),
-                buffer_capacity=g("replay_buffer_size", 65536),
-                **common,
+    ``save_<i>/``. The span ``setup.trainer`` holds the build."""
+    with span("setup.trainer", block_on=resolve(device)):
+        offpolicy = agent_name in ("soft_actor_critic", "cross_q", "soft_actor_critic_liquid")
+        step_buffer = agent_name in ("actor_critic", "ppo_vanilla")
+        if not (offpolicy or step_buffer or agent_name in ("ppo_gae", "ppo", "ppo_gae_liquid")):
+            raise SystemExit("batched training supports ppo_gae/ppo_gae_liquid/actor_critic/"
+                             "ppo_vanilla/soft_actor_critic/soft_actor_critic_liquid/cross_q, "
+                             f"not {agent_name}")
+        dev = resolve(device)
+        # mt_parity off: the envs draw their resets from the trainer's generator
+        # (a shared mt19937 table would tilt every env identically)
+        env = env_factory.make(env_seed, mt_parity=False, device=dev, per_env_step=False)
+        g = lambda k, d: type(d)(agent_params[k]) if k in agent_params else d  # noqa: E731
+        if offpolicy:
+            common = dict(
+                batch_size=g("batch_size", 256),
+                epoch=g("epoch", 1),
+                learning_rate=g("learning_rate", 3e-4),
+                gamma=g("gamma", 0.99),
+                tau=g("tau", 0.005),
+                train_every=g("train_every", 1),
+                steps_per_iter=g("horizon", 64),
+                n_envs=num_envs,
             )
-            trainer = BatchedOffPolicyLiquid(env, cfg, seed=g("seed", env_seed))
-        else:
-            guard = agent_params.get("nan_guard", "false")
-            if guard not in ("true", "false"):
-                raise ValueError(f"nan_guard={guard!r}: expected true or false")
-            cfg = OffPolicyConfig(
-                actor_hidden_size=g("hidden_size", 256),
-                critic_hidden_size=g("critic_hidden_size", g("hidden_size", 256)),
+            if agent_name == "soft_actor_critic_liquid":
+                cfg = OffPolicyLiquidConfig(
+                    neurons=g("neuron_number", 64),
+                    unfolding_steps=g("unfolding_steps", 6),
+                    buffer_capacity=g("replay_buffer_size", 65536),
+                    **common,
+                )
+                trainer = BatchedOffPolicyLiquid(env, cfg, seed=g("seed", env_seed))
+            else:
+                guard = agent_params.get("nan_guard", "false")
+                if guard not in ("true", "false"):
+                    raise ValueError(f"nan_guard={guard!r}: expected true or false")
+                cfg = OffPolicyConfig(
+                    actor_hidden_size=g("hidden_size", 256),
+                    critic_hidden_size=g("critic_hidden_size", g("hidden_size", 256)),
+                    buffer_capacity=g("replay_buffer_size", 262144),
+                    nan_guard=guard == "true",
+                    **common,
+                )
+                trainer = BatchedOffPolicy(env, agent_name, cfg, seed=g("seed", env_seed))
+            horizon = cfg.steps_per_iter
+
+            def critic_loss(m):
+                return m.critic_1_loss
+
+            save = trainer.save
+        elif step_buffer:
+            cfg = StepTrainerConfig(
+                hidden_size=g("hidden_size", 256),
+                batch_size=g("batch_size", 256),
+                learning_rate=g("learning_rate", 1e-3),
+                gamma=g("gamma", 0.99),
+                entropy_start_factor=g("entropy_start_factor", 0.01),
+                entropy_end_factor=g("entropy_end_factor", 1e-4),
+                entropy_steps=g("entropy_steps", 100000),
+                epsilon=g("epsilon", 0.2),
+                entropy_factor=g("entropy_factor", 0.01),
+                critic_loss_factor=g("critic_loss_factor", 0.5),
+                epoch=g("epoch", 8),
+                train_every=g("train_every", 1),
+                steps_per_iter=g("horizon", 64),
+                n_envs=num_envs,
                 buffer_capacity=g("replay_buffer_size", 262144),
-                nan_guard=guard == "true",
-                **common,
             )
-            trainer = BatchedOffPolicy(env, agent_name, cfg, seed=g("seed", env_seed))
-        horizon = cfg.steps_per_iter
+            trainer = BatchedStepTrainer(env, agent_name, cfg, seed=g("seed", env_seed))
+            horizon = cfg.steps_per_iter
 
-        def critic_loss(m):
-            return m.critic_1_loss
+            def critic_loss(m):
+                return m.critic_loss
 
-        save = trainer.save
-    elif step_buffer:
-        cfg = StepTrainerConfig(
-            hidden_size=g("hidden_size", 256),
-            batch_size=g("batch_size", 256),
-            learning_rate=g("learning_rate", 1e-3),
-            gamma=g("gamma", 0.99),
-            entropy_start_factor=g("entropy_start_factor", 0.01),
-            entropy_end_factor=g("entropy_end_factor", 1e-4),
-            entropy_steps=g("entropy_steps", 100000),
-            epsilon=g("epsilon", 0.2),
-            entropy_factor=g("entropy_factor", 0.01),
-            critic_loss_factor=g("critic_loss_factor", 0.5),
-            epoch=g("epoch", 8),
-            train_every=g("train_every", 1),
-            steps_per_iter=g("horizon", 64),
-            n_envs=num_envs,
-            buffer_capacity=g("replay_buffer_size", 262144),
-        )
-        trainer = BatchedStepTrainer(env, agent_name, cfg, seed=g("seed", env_seed))
-        horizon = cfg.steps_per_iter
-
-        def critic_loss(m):
-            return m.critic_loss
-
-        save = trainer.save
-    else:
-        common = dict(
-            gamma=g("gamma", 0.99),
-            lam=g("lambda", 0.95),
-            epsilon=g("epsilon", 0.2),
-            entropy_factor=g("entropy_factor", 0.01),
-            critic_loss_factor=g("critic_loss_factor", 0.5),
-            epoch=g("epoch", 8),
-            learning_rate=g("learning_rate", 1e-3),
-            clip_grad_norm=g("clip_grad_norm", 0.5),
-            horizon=g("horizon", 64),
-            n_envs=num_envs,
-        )
-        if agent_name == "ppo_gae_liquid":
-            cfg = PpoLiquidConfig(
-                neurons=g("neuron_number", 64),
-                unfolding_steps=g("unfolding_steps", 6),
-                **common,
-            )
-            trainer = BatchedPpoLiquid(env, cfg, seed=g("seed", env_seed))
+            save = trainer.save
         else:
-            cfg = PpoConfig(hidden_size=g("hidden_size", 256), **common)
-            trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
-        horizon = cfg.horizon
+            common = dict(
+                gamma=g("gamma", 0.99),
+                lam=g("lambda", 0.95),
+                epsilon=g("epsilon", 0.2),
+                entropy_factor=g("entropy_factor", 0.01),
+                critic_loss_factor=g("critic_loss_factor", 0.5),
+                epoch=g("epoch", 8),
+                learning_rate=g("learning_rate", 1e-3),
+                clip_grad_norm=g("clip_grad_norm", 0.5),
+                horizon=g("horizon", 64),
+                n_envs=num_envs,
+            )
+            if agent_name == "ppo_gae_liquid":
+                cfg = PpoLiquidConfig(
+                    neurons=g("neuron_number", 64),
+                    unfolding_steps=g("unfolding_steps", 6),
+                    **common,
+                )
+                trainer = BatchedPpoLiquid(env, cfg, seed=g("seed", env_seed))
+            else:
+                cfg = PpoConfig(hidden_size=g("hidden_size", 256), **common)
+                trainer = BatchedPpo(env, cfg, seed=g("seed", env_seed))
+            horizon = cfg.horizon
 
-        def critic_loss(m):
-            return m.critic_loss
+            def critic_loss(m):
+                return m.critic_loss
 
-        save = save_agent
-    return trainer, horizon, critic_loss, save
+            save = save_agent
+        return trainer, horizon, critic_loss, save
 
 
 def infer(env_seed, agent_factory, env_factory, input_path, episodes=1, record_path=None,

@@ -44,6 +44,7 @@ from ..networks import distributions as D
 from ..networks.modules import Actor, Critic
 from ..parallel.mesh import all_reduce_grads, psum
 from .checkpoint import load_component, save_component
+from .profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,13 +306,14 @@ class BatchedPpo:
             env_state, obs, ep_steps = state.env_state, state.obs, state.ep_steps
             steps = []
             for t in range(cfg.horizon):
-                obs_in = normalize_obs(state, obs) if cfg.obs_norm else obs
-                mu, sigma = state.actor(obs_in)
-                sigma = sigma * sig_scale
-                u = None if uniforms is None else uniforms[t]
-                action = D.truncated_normal_sample(mu, sigma, state.generator, u)
-                log_prob = D.truncated_normal_log_pdf(action, mu, sigma)
-                value = state.critic(obs_in)
+                with span("rollout.policy"):
+                    obs_in = normalize_obs(state, obs) if cfg.obs_norm else obs
+                    mu, sigma = state.actor(obs_in)
+                    sigma = sigma * sig_scale
+                    u = None if uniforms is None else uniforms[t]
+                    action = D.truncated_normal_sample(mu, sigma, state.generator, u)
+                    log_prob = D.truncated_normal_log_pdf(action, mu, sigma)
+                    value = state.critic(obs_in)
                 env_state, res = env.step(env_state, action, state.generator)
                 # per-episode bookkeeping: count valid frames; emit the
                 # finished length (and its win flag) on the done step
@@ -357,11 +359,11 @@ class BatchedPpo:
         as the networks see them, then GAE's ``(advantages, returns, maskf,
         n_valid)``."""
         cfg = self.config
-        obs, last_obs = traj.obs, state.obs
-        if cfg.obs_norm:
-            obs = normalize_obs(state, obs)
-            last_obs = normalize_obs(state, last_obs)
-        with torch.no_grad():
+        with torch.no_grad(), span("update.gae"):
+            obs, last_obs = traj.obs, state.obs
+            if cfg.obs_norm:
+                obs = normalize_obs(state, obs)
+                last_obs = normalize_obs(state, last_obs)
             bootstrap = state.critic(last_obs)  # [N, 1]
             shaped = traj.reward + cfg.survival_bonus  # masked inside the GAE
             return (obs, *gae_and_normalize(cfg, traj.value, shaped, traj.done, traj.valid,
@@ -370,9 +372,10 @@ class BatchedPpo:
     def critic_step(self, state: PpoTrainState, obs, returns, maskf, n) -> torch.Tensor:
         """One epoch's critic update, in place; returns its loss."""
         cfg = self.config
-        v = state.critic(obs)
-        c_loss = cfg.critic_loss_factor * (((v - returns) ** 2) * maskf).sum() / n
-        _step(state.critic_opt, state.critic, c_loss, cfg.clip_grad_norm)
+        with span("update.critic"):
+            v = state.critic(obs)
+            c_loss = cfg.critic_loss_factor * (((v - returns) ** 2) * maskf).sum() / n
+            _step(state.critic_opt, state.critic, c_loss, cfg.clip_grad_norm)
         return c_loss.detach()
 
     def _update(self, state: PpoTrainState, traj: Trajectory, it: int) -> PpoMetrics:
@@ -391,16 +394,17 @@ class BatchedPpo:
 
         a_losses, c_losses = [], []
         for _ in range(cfg.epoch):
-            mu, sigma = actor(obs)
-            sigma = sigma * sig_scale
-            lp = D.truncated_normal_log_pdf(actions, mu, sigma)
-            entropy = D.truncated_normal_entropy(mu, sigma)
-            ratios = torch.exp(lp - log_probs)
-            s1 = ratios * advantages
-            s2 = torch.clamp(ratios, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * advantages
-            obj = torch.minimum(s1, s2) + ent_factor * entropy
-            a_loss = -(obj * maskf).sum() / n_act
-            _step(state.actor_opt, actor, a_loss, cfg.clip_grad_norm)
+            with span("update.actor"):
+                mu, sigma = actor(obs)
+                sigma = sigma * sig_scale
+                lp = D.truncated_normal_log_pdf(actions, mu, sigma)
+                entropy = D.truncated_normal_entropy(mu, sigma)
+                ratios = torch.exp(lp - log_probs)
+                s1 = ratios * advantages
+                s2 = torch.clamp(ratios, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * advantages
+                obj = torch.minimum(s1, s2) + ent_factor * entropy
+                a_loss = -(obj * maskf).sum() / n_act
+                _step(state.actor_opt, actor, a_loss, cfg.clip_grad_norm)
             a_losses.append(a_loss.detach())
             c_losses.append(self.critic_step(state, obs, returns, maskf, n))
 

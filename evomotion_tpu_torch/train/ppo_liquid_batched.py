@@ -37,6 +37,7 @@ import torch
 from ..networks import distributions as D
 from ..networks.liquid import LiquidActor, LiquidCritic, first_x
 from .ppo_batched import PpoConfig, PpoMetrics, _step, gae_and_normalize, ppo_metrics
+from .profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,11 +129,12 @@ class BatchedPpoLiquid:
             ax, cx = state.actor_x, state.critic_x
             steps = []
             for t in range(cfg.horizon):
-                mu, sigma, new_ax = state.actor(ax, obs)
-                u = None if uniforms is None else uniforms[t]
-                action = D.truncated_normal_sample(mu, sigma, state.generator, u)
-                log_prob = D.truncated_normal_log_pdf(action, mu, sigma)
-                value, new_cx = state.critic(cx, obs)
+                with span("rollout.policy"):
+                    mu, sigma, new_ax = state.actor(ax, obs)
+                    u = None if uniforms is None else uniforms[t]
+                    action = D.truncated_normal_sample(mu, sigma, state.generator, u)
+                    log_prob = D.truncated_normal_log_pdf(action, mu, sigma)
+                    value, new_cx = state.critic(cx, obs)
                 env_state, res = env.step(env_state, action, state.generator)
                 grown = ep_steps + res.valid.to(torch.int32)
                 ended = res.done & res.valid
@@ -177,7 +179,7 @@ class BatchedPpoLiquid:
     def _update(self, state: PpoLiquidTrainState, traj: LiquidTrajectory) -> PpoMetrics:
         cfg = self.config
         obs, actions, log_probs = traj.obs, traj.action, traj.log_prob
-        with torch.no_grad():
+        with torch.no_grad(), span("update.gae"):
             bootstrap, _ = state.critic(state.critic_x, state.obs)  # [N, 1]
             advantages, returns, maskf, n = gae_and_normalize(
                 cfg, traj.value, traj.reward, traj.done, traj.valid, bootstrap)
@@ -186,19 +188,21 @@ class BatchedPpoLiquid:
         a_losses, c_losses = [], []
         for _ in range(cfg.epoch):
             # replay from the stored hidden states, [T, N] at once
-            mu, sigma, _ = state.actor(traj.actor_x, obs)
-            lp = D.truncated_normal_log_pdf(actions, mu, sigma)
-            entropy = D.truncated_normal_entropy(mu, sigma)
-            ratios = torch.exp(lp - log_probs)
-            s1 = ratios * advantages
-            s2 = torch.clamp(ratios, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * advantages
-            obj = torch.minimum(s1, s2) + cfg.entropy_factor * entropy
-            a_loss = -(obj * maskf).sum() / n_act
-            _step(state.actor_opt, state.actor, a_loss, cfg.clip_grad_norm)
+            with span("update.actor"):
+                mu, sigma, _ = state.actor(traj.actor_x, obs)
+                lp = D.truncated_normal_log_pdf(actions, mu, sigma)
+                entropy = D.truncated_normal_entropy(mu, sigma)
+                ratios = torch.exp(lp - log_probs)
+                s1 = ratios * advantages
+                s2 = torch.clamp(ratios, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * advantages
+                obj = torch.minimum(s1, s2) + cfg.entropy_factor * entropy
+                a_loss = -(obj * maskf).sum() / n_act
+                _step(state.actor_opt, state.actor, a_loss, cfg.clip_grad_norm)
             a_losses.append(a_loss.detach())
-            v, _ = state.critic(traj.critic_x, obs)
-            c_loss = cfg.critic_loss_factor * (((v - returns) ** 2) * maskf).sum() / n
-            _step(state.critic_opt, state.critic, c_loss, cfg.clip_grad_norm)
+            with span("update.critic"):
+                v, _ = state.critic(traj.critic_x, obs)
+                c_loss = cfg.critic_loss_factor * (((v - returns) ** 2) * maskf).sum() / n
+                _step(state.critic_opt, state.critic, c_loss, cfg.clip_grad_norm)
             c_losses.append(c_loss.detach())
 
         state.iteration += 1

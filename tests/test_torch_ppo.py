@@ -362,7 +362,7 @@ def test_step_timer_and_trace_around_a_train_step(tmp_path):
     trace, on the CPU."""
     import json
 
-    from evomotion_tpu_torch.train.profiling import StepTimer, annotate, trace
+    from evomotion_tpu_torch.train.profiling import StepTimer, span, trace
 
     timer = StepTimer()
     trainer = PP.BatchedPpo(TorchToyEnv(), PP.PpoConfig(**CFG), seed=1)
@@ -376,7 +376,7 @@ def test_step_timer_and_trace_around_a_train_step(tmp_path):
     assert timer.rate("train_iter", T * N) > 0 and timer.rate("missing", 1) == 0.0
     assert timer.summary().startswith("rollout: ")
     with trace(str(tmp_path)):
-        with annotate("one step"):
+        with span("one step"):
             step(state)
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
