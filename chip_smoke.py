@@ -26,11 +26,13 @@ kernel); the viewer's ``run --record/--html/--live`` and ``eval_walk
 --out``'s re-run, and the web robot builder's infer tab (``cli gui``), all
 on the fat-row sweep; data-parallel PPO and CrossQ training over the env
 batch (``tools.multihost_worker`` under ``torch.distributed.run``, the
-slim sweep in every rank). Phases, each printed with its seconds:
+slim sweep in every rank). Every batched spider path also runs the member
+contact kernel, ``kernels/csrc/member_contacts.cu``, once per physics
+step. Phases, each printed with its seconds:
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi),
    torch and nvcc versions, the f32 matmul setting (no TF32);
-2. build: nvcc builds the three kernels, one process each, started
+2. build: nvcc builds the four kernels, one process each, started
    together, and prints their registers and spills;
 3. kernel check: the slim sweep's inputs are captured at B=2048 from the
    first step after a reset of the spider, for bf16 rows (the shipped
@@ -222,7 +224,15 @@ slim sweep in every rank). Phases, each printed with its seconds:
     env-steps/s, the update's ms and one update's broadcasts printed; the
     slim sweep's kernel on the first call at each rank's batch against its
     plain version;
-33. the off-policy, on-policy, liquid, xla/viewer/gui and data-parallel
+33. member kernel check: kernel #4 (the member contact phase) at the
+    main path's batches, B=4096 and 8192: the spider's member call of the
+    first step after a seeded reset and of a step after 30 more steps of
+    random actions, kernel against its plain version on all envs (act and
+    vid equal, J within MEMBER_J_RTOL of one bf16 rounding, the rest
+    within MEMBER_TOL); its time (CUDA events) beside its bound and the
+    plain version's; its launch plan with ptxas's registers and spills;
+    kernel #4 launched once per physics step of the reset and the steps;
+34. the off-policy, on-policy, liquid, xla/viewer/gui and data-parallel
     readings lines, the kernels line and the last line (one JSON object
     each).
 
@@ -262,11 +272,25 @@ N_CMP = 256
 # |card step - CPU step| bound on pos, quat and velocities after one physics
 # step with f32 rows: the same arithmetic, rounded in another order.
 STEP_TOL = 1e-3
+# kernel #4 against its plain version (tests/test_torch_gpu.py
+# check_member says the same): act, vid and the warm impulses equal; J
+# within one bf16 rounding, f32 J and the rows' scalars within MEMBER_TOL,
+# relative and absolute: the kernel takes PyTorch's operations and their
+# order, but the order of PyTorch's small sums follows the layout, which
+# the batch changes (at B = 1 every component axis is innermost), and an f32
+# value an ulp apart can round to the next bf16; imp6 within MEMBER_TOL
+# (summed with atomics by the plain version, in pair order by the kernel).
+# A wrong face, point or slot moves these by far more.
+MEMBER_J_RTOL = 2 ** -7
+MEMBER_TOL = 1e-5
+MEMBER_BATCHES = (4096, 8192)
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # fp32 outside the tensor cores, at the full 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 REPLACES = "evomotion_tpu/physics/solver_pallas.py:656"
+MEMBER_REPLACES = ("none: the JAX package's _member_contact_rows "
+                   "(evomotion_tpu/physics/batched.py:1031) is plain jnp")
 TPU_KERNEL = ("solver_sweep_envlast_slim -> _sweep_kernel_envlast_slim "
               "(evomotion_tpu/physics/solver_pallas.py:508, pallas_call :592)")
 FAT_REPLACES = "evomotion_tpu/physics/solver_pallas.py:98"
@@ -788,10 +812,12 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label,
     60) after the steps. Returns the readings."""
     import torch
 
+    from evomotion_tpu_torch.kernels import member as km
     from evomotion_tpu_torch.kernels import sweep as sp
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     sp.KERNEL.launches = 0
+    m0 = km.KERNEL.launches
     cap.calls = 0
     ts = time.perf_counter()
     state, res = env.reset(n_envs, gen)
@@ -815,12 +841,16 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label,
         torch.cuda.synchronize()
     t_steps = time.perf_counter() - ts
     launches, calls = sp.KERNEL.launches, cap.calls
+    member_launches = km.KERNEL.launches - m0
     want = env.settle_total + n_steps
-    print(f"{label}: sweep calls {calls}, kernel launches {launches}, physics steps {want}",
-          flush=True)
+    print(f"{label}: sweep calls {calls}, kernel launches {launches}, member kernel launches "
+          f"{member_launches}, physics steps {want}", flush=True)
     if calls != want or (not cpu and launches != want):
         fail(f"{label}: expected {want} sweep kernel launches (one per physics step), "
              f"got {launches} launches of {calls} calls")
+    if member_launches != (0 if cpu else want):
+        fail(f"{label}: expected {want} member kernel launches (one per physics step), "
+             f"got {member_launches}")
     rewards = torch.stack(rewards)
     finite = all(torch.isfinite(x.float()).all() for x in (res.obs, rewards, *state.physics))
     if not finite:
@@ -859,7 +889,8 @@ def batched_rollout(env, n_envs, n_steps, seed, cap, dev, cpu, card, label,
     print(f"{label}: reset ({env.settle_total} settle steps) {t_reset:.2f} s; {n_steps} steps "
           f"{t_steps:.2f} s", flush=True)
     print(f"{label}: env-steps/s {sps:.1f} at B={n_envs} [{card}]", flush=True)
-    return {"launches": launches, "sps": sps, "step_ms": t_steps / n_steps * 1e3}
+    return {"launches": launches, "member_launches": member_launches, "sps": sps,
+            "step_ms": t_steps / n_steps * 1e3}
 
 
 def perenv_groups_check(args, dev, cpu, params, fat_cap, fat, card):
@@ -3106,6 +3137,142 @@ def data_parallel(args, dev, cpu, card, cap):
                        "cross_q 2 ranks": cq_s}}
 
 
+def member_call(env, state, action, gen):
+    """One env step; returns the arguments of its member-phase call (kernel
+    #4's entry, which the step looks up as ``batched.km.member_contact_rows``)
+    and the new state."""
+    from evomotion_tpu_torch.kernels import member as km
+
+    calls, orig = [], km.member_contact_rows
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    km.member_contact_rows = spy
+    try:
+        state = env.step(state, action, gen)[0]
+    finally:
+        km.member_contact_rows = orig
+    if len(calls) != 1:
+        fail(f"member phase called {len(calls)} times in one step")
+    return calls[0], state
+
+
+def member_flops(sh, b):
+    """fp32 operations of one kernel #4 call, its main terms (a floor): the
+    plane tests of both sides of each narrowphased pair (3 multiplies, 3
+    adds) and, with edge contacts, the SAT's projections (2 bodies x nsupp
+    test points x 5 per axis)."""
+    per_env = 2 * sh.m * sh.v * sh.f * 6
+    if sh.edge:
+        per_env += sh.m * sh.ne * sh.ne * 2 * sh.nsupp * 5
+    return per_env * b
+
+
+def member_errors(got, ref):
+    """Kernel #4 against its plain version: (largest finite error, entries
+    of act, vid, lam_n0 and lam_t0 that differ, other entries outside
+    MEMBER_J_RTOL / MEMBER_TOL)."""
+    import torch
+
+    (nj, ns), (fj, fs), x = got
+    (rnj, rns), (rfj, rfs), rx = ref
+    mism = sum(int((x[k] != rx[k]).sum()) for k in ("act", "vid", "lam_n0", "lam_t0"))
+    j_rtol = MEMBER_J_RTOL if nj.dtype == torch.bfloat16 else MEMBER_TOL
+    err, bad = 0.0, 0
+    for a, r, rtol in ((nj, rnj, j_rtol), (fj, rfj, j_rtol), (ns, rns, MEMBER_TOL), (fs, rfs, 0.0),
+                       (x["imp6"], rx["imp6"], MEMBER_TOL)):
+        a, r = a.float(), r.float()
+        d = (a - r).abs()
+        ok = (d <= MEMBER_TOL + rtol * r.abs()) | (a == r)
+        bad += int((~ok).sum())
+        err = max(err, float(torch.where(torch.isfinite(d), d, torch.zeros_like(d)).max()))
+    return err, mism, bad
+
+
+def member_kernel_check(args, dev, cpu, card, params):
+    """Phase 33: kernel #4 against its plain version on the spider's member
+    calls at the main path's batches, timed beside its bound and the plain
+    version, counted once per physics step."""
+    import torch
+
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+    from evomotion_tpu_torch.kernels import member as km
+    from evomotion_tpu_torch.physics import batched
+
+    t0 = phase("member kernel check")
+    n_sms = None if cpu else torch.cuda.get_device_properties(dev).multi_processor_count
+    n_deep = 2 if cpu else 30
+    by_batch, worst, mism_all = {}, 0.0, 0
+    for b in ((4,) if cpu else MEMBER_BATCHES):
+        env = RobotWalk(params, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+        m0 = km.KERNEL.launches
+        state, _ = env.reset(b, gen)
+        calls = {}
+        for label, n in (("after reset", 0), (f"after {n_deep} more steps", n_deep)):
+            for _ in range(n):
+                action = torch.rand((b, env.action_size), generator=gen, device=dev) * 2 - 1
+                state = env.step(state, action, gen)[0]
+            action = torch.rand((b, env.action_size), generator=gen, device=dev) * 2 - 1
+            calls[label], state = member_call(env, state, action, gen)
+        launches = km.KERNEL.launches - m0
+        steps = env.settle_total + n_deep + 2
+        print(f"member kernel B={b}: {launches} launches over {steps} physics steps", flush=True)
+        if launches != (0 if cpu else steps):
+            fail(f"member kernel B={b}: expected one launch per physics step ({steps}), "
+                 f"got {launches}")
+        for label, (a, kw) in calls.items():
+            got = km.member_contact_rows(*a, **kw)
+            if not cpu:
+                torch.cuda.synchronize()
+            ref = batched._member_contact_rows(*a, **kw)
+            err, mism, bad = member_errors(got, ref)
+            worst, mism_all = max(worst, err), mism_all + mism
+            print(f"member kernel B={b} {label}: active points {int(ref[2]['act'].sum())}, "
+                  f"max |kernel - plain| {err:.3e}, act/vid/warm entries that differ {mism}, "
+                  f"entries outside the tolerances {bad}", flush=True)
+            if mism or bad:
+                fail(f"member kernel disagrees with its plain version at B={b} ({label})")
+        if cpu:
+            by_batch[b] = {"launches": launches, "ms": None, "plain_ms": None, "bound_ms": None,
+                           "bound_by": None, "launch": None}
+            continue
+        a, kw = calls[f"after {n_deep} more steps"]
+        ms = cuda_ms(lambda: km.member_contact_rows(*a, **kw), 20)
+        batched._member_contact_rows(*a, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = batched._member_contact_rows(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        model, st = a[0], a[1]
+        sh, meta = km.shapes(model, st), st.member_meta
+        (nj, ns), (fj, fs), x = ref
+        # each input read once (the member bodies' staged state, the warm
+        # caches), each output written once
+        nbytes = (4 * b * meta.u * km.STATE + sum(t.numel() * t.element_size()
+                                                   for t in kw["warm_cache"])
+                  + sum(t.numel() * t.element_size() for t in (nj, ns, fj, fs, *x.values())))
+        flops = member_flops(sh, b)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        pl = km.KERNEL.plan_for(meta, sh, b, dev)
+        launch = launch_info(km.KERNEL, pl, b, n_sms, "member_contacts_kernel",
+                             f"member kernel B={b}")
+        print(f"member kernel B={b}: {ms:.4f} ms/call (CUDA events), plain version "
+              f"{plain_ms:.2f} ms/call; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} "
+              f"MB, {flops / 1e9:.3f} GFLOP), {100 * bound_ms / ms:.1f}% of it [{card}]",
+              flush=True)
+        by_batch[b] = {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "launch": launch}
+    done("member kernel check", t0)
+    return {"err": worst, "mismatched": mism_all, "by_batch": by_batch}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3124,6 +3291,7 @@ def main(argv=None):
     from evomotion_tpu_torch.envs.robot import RobotWalk, RobotWalkParams
     from evomotion_tpu_torch.kernels import sweep as sp
     from evomotion_tpu_torch.kernels import sweep_envlast as se
+    from evomotion_tpu_torch.kernels import member as km
     from evomotion_tpu_torch.kernels import sweep_fat as sf
     from evomotion_tpu_torch.physics import batched, perenv
 
@@ -3171,7 +3339,7 @@ def main(argv=None):
     # ---- 2. build ----
     t0 = phase("build")
     if not cpu:
-        kernels = (sp.KERNEL, sf.KERNEL, se.KERNEL)
+        kernels = (sp.KERNEL, sf.KERNEL, se.KERNEL, km.KERNEL)
         with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each, together
             built = list(pool.map(lambda k: k.build(), kernels))
         for k, so in zip(kernels, built):
@@ -3306,8 +3474,9 @@ def main(argv=None):
     view = viewer_paths(args, dev, cpu, card, fat_cap, cap)
     gui = gui_path(args, dev, cpu, card)
     dp = data_parallel(args, dev, cpu, card, cap)
+    member = member_kernel_check(args, dev, cpu, card, params)
 
-    # ---- 33. readings lines, kernels line and last line ----
+    # ---- 34. readings lines, kernels line and last line ----
     print(json.dumps({"offpolicy": {
         "update_check": off_update,
         "train": {k: {x: v[x] for x in ("ms", "rate", "grad_rate")} for k, v in off_train.items()},
@@ -3410,7 +3579,32 @@ def main(argv=None):
         "library_ms": None,
         "launch": envlast["launch"],
     }
-    print(json.dumps({"kernels": [kern, fat_kern, envlast_kern]}), flush=True)
+    member_kern = {
+        "name": "member_contacts",
+        "route": "cuda",
+        "source": "evomotion_tpu_torch/kernels/csrc/member_contacts.cu",
+        "replaces": MEMBER_REPLACES,
+        "tpu_kernel": None,
+        # every in-process launch of the run: one per batched spider physics
+        # step (the data-parallel ranks count their own)
+        "launches": km.KERNEL.launches,
+        "launches_by_path": {"batched canonical": main_run["member_launches"],
+                             "batched scheduled": sched_run["member_launches"],
+                             "robot_jump batched": jump["batched"]["member_launches"],
+                             **{f"member kernel check B={b}": r["launches"]
+                                for b, r in member["by_batch"].items()}},
+        "max_abs_err": member["err"],
+        "mismatched_ids": member["mismatched"],
+        "tol": MEMBER_TOL,
+        "j_rtol": MEMBER_J_RTOL,
+        "ms": {b: r["ms"] for b, r in member["by_batch"].items()},
+        "plain_ms": {b: r["plain_ms"] for b, r in member["by_batch"].items()},
+        "bound_ms": {b: r["bound_ms"] for b, r in member["by_batch"].items()},
+        "bound_by": {b: r["bound_by"] for b, r in member["by_batch"].items()},
+        "library_ms": None,
+        "launch": {b: r["launch"] for b, r in member["by_batch"].items()},
+    }
+    print(json.dumps({"kernels": [kern, fat_kern, envlast_kern, member_kern]}), flush=True)
     if cpu:
         print(json.dumps({"ok": True, "device": {"platform": "cpu", "kind": "cpu",
                                                  "count": 0}}), flush=True)

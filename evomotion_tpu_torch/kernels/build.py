@@ -29,12 +29,13 @@ NVCC_FLAGS = (
 class NvccLibrary:
     """One ``.cu`` source and the shared library nvcc builds from it."""
 
-    def __init__(self, source_name: str):
+    def __init__(self, source_name: str, flags: tuple = ()):
         self.source = CSRC / source_name
+        self.flags = (*NVCC_FLAGS, *flags)  # NVCC_FLAGS and this source's own
         self.build_log = ""
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode())
         for header in sorted(CSRC.glob("*.cuh")):
             h.update(header.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
@@ -53,7 +54,7 @@ class NvccLibrary:
             raise RuntimeError(f"{self.source.name}: nvcc not found (CUDA toolkit needed)")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc, *self.flags, "-o", str(tmp), str(self.source)]
         with span("kernels.build"):
             res = subprocess.run(cmd, capture_output=True, text=True)
         self.build_log = res.stdout + res.stderr

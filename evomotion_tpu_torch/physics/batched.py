@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..kernels import member as km
 from ..kernels import sweep as sp
 from ..train.profiling import span
 from . import engine as E
@@ -255,6 +256,19 @@ class Statics:
             self._inv_mass, meta.idx6_a, meta.idx6_b, meta.parent, meta.mu,
             meta.kind, meta.skip_b, self.n_full, self._dev, groups=meta.groups,
             chunk=meta.chunk,
+        )
+
+    @functools.cached_property
+    def member_meta(self):
+        """Kernel #4's statics table on the device, made at its first use:
+        the CPU path never reads it."""
+        def host(t):
+            return t.cpu().numpy()
+
+        return km.make_member_meta(
+            np.stack([host(self.dp_a), host(self.dp_b)], 1), self._inv_mass, host(self.np_hull),
+            host(self.np_hmask), host(self.np_face), host(self.edirs), host(self.emask),
+            host(self.dp_brad), host(self.dp_marg), self._dev,
         )
 
 
@@ -1050,7 +1064,8 @@ def step_envlast(model: PhysicsModel, st: Statics, dt: float, pos, quat, lin_vel
 
     with span("physics.member"):
         if n_dyn:
-            member_normal, member_friction, member_x = _member_contact_rows(
+            # kernel #4 on the card, the plain version on the CPU
+            member_normal, member_friction, member_x = km.member_contact_rows(
                 model, st, pos, quat, lin_vel, ang_vel, iinv_world, dt,
                 warm_cache=(dyn_vid, dyn_lambda), j_dtype=j_dtype,
             )

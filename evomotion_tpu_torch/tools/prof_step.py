@@ -9,7 +9,9 @@ The port of the repo's ``tools/prof_step.py``. It resets ``--envs`` spiders
 env-last physics step alone on that state, ``--reps`` calls after one
 warm-up call, with a device sync before and after: the full env step (zero
 actions), the physics step, and within it the world inverse inertia, floor
-contacts, joint rows, member narrowphase and member rows; then the sweep
+contacts, joint rows, member narrowphase (the plain version's) and the
+member phase as the step runs it (kernel #4 on the card: cull,
+narrowphase, rows and warm start in one launch); then the sweep
 kernel alone (the env-last fat-row sweep, TPU kernel #3's port, on random
 rows N(0, 1) * 0.01 with the spider's full-sweep metadata, as the TPU tool
 does) and the obs/env overhead (env step minus physics step). On the card
@@ -30,6 +32,7 @@ import torch
 
 from ..device import resolve
 from ..envs.robot import RobotWalk, RobotWalkParams
+from ..kernels import member as km
 from ..kernels import sweep_envlast as se
 from ..physics import batched as bt
 from ..physics import engine as E
@@ -128,8 +131,10 @@ def main(argv=None) -> int:
           lambda: bt.build_joint_rows(m, st, pos, quat, mtl, mel, dt, j_dtype=jd))
     if st.n_dyn:
         phase("  member narrowphase:", lambda: bt._dyn_narrowphase(m, st, pos, quat))
-        phase("  member rows:", lambda: bt._member_contact_rows(
-            m, st, pos, quat, lin, ang, bt._iinv_world(st, quat), dt, j_dtype=jd))
+        warm = (phys.dyn_vid.movedim(0, -1), phys.dyn_lambda.movedim(0, -1))
+        iinv = bt._iinv_world(st, quat)
+        phase("  member rows:", lambda: km.member_contact_rows(
+            m, st, pos, quat, lin, ang, iinv, dt, warm_cache=warm, j_dtype=jd))
 
     # the sweep kernel alone: random rows, the spider's full-sweep metadata
     k = MAX_CONTACTS_PER_PAIR

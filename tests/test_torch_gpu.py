@@ -11,7 +11,13 @@ with one iteration, and with the fewest stages a plan can take;
 the launch plans' shared-memory sums and occupancy against the kernels';
 kernel #1 on the cartpoles' batched step (card against CPU) and the CLI's
 batched PPO ``train`` on the card; the liquid SAC and PPO-GAE updates on
-the card against the CPU, and the CLI's batched liquid PPO-GAE ``train``.
+the card against the CPU, and the CLI's batched liquid PPO-GAE ``train``;
+kernel #4 (the member contact phase) against its plain version on the
+spider's member calls after a reset and after 30 random-action steps at
+B = 1, 17, 256 and 4,096, with edge contacts off, K = 1, dense, f32 J and
+strict_bullet, with warm caches that match nothing, on scrambled poses
+(edge contacts), with one exploded env, once per physics step, and its
+statics and shared-memory sums against the kernel's.
 
 They skip where torch sees no card. This file imports no JAX, so it also
 runs on a host where JAX is not installed: ``python -m pytest --noconftest
@@ -27,9 +33,11 @@ import pytest
 import torch
 
 import chip_smoke
+from evomotion_tpu_torch.kernels import member as tsm
 from evomotion_tpu_torch.kernels import sweep as tsp
 from evomotion_tpu_torch.kernels import sweep_envlast as tse
 from evomotion_tpu_torch.kernels import sweep_fat as tsf
+from evomotion_tpu_torch.physics import batched as tbt
 
 NB = 4  # body 0 static (a floor), bodies 1-3 dynamic
 NR_PAD = 32
@@ -817,3 +825,232 @@ def test_cli_batched_liquid_ppo_train_on_card(tmp_path):
     with np.load(tmp_path / "save_0" / "actor.npz") as f:
         assert f["cell/w"].shape == (64, 371)
         assert all(np.isfinite(f[k]).all() for k in f)
+
+
+# ---------------------------------------------------------------------------
+# kernel #4: the member contact phase
+# ---------------------------------------------------------------------------
+
+MEMBER_B = 4096
+MEMBER_VARIANTS = {
+    "shipped": {},  # the top-48 cull, edge contacts, K = 4, bf16 J
+    "no_edges": {"member_edge_contacts": False},
+    "k1": {"member_manifold_k": 1},
+    "dense": {"member_topm": 0},
+    "f32": {"row_dtype": "f32"},
+    "strict": {"strict_bullet": True},  # f32 J, the slip-aligned friction rows
+}
+_member_calls = {}
+
+
+def _spy_member_call(env, state, action, gen):
+    calls, orig = [], tsm.member_contact_rows
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsm, "member_contact_rows", spy)
+        env.step(state, action, gen)
+    assert len(calls) == 1
+    return calls[0]
+
+
+def member_call(variant, deep):
+    """The member call of one spider step on the card at B=4096: after a
+    seeded reset (60 settle steps), or after 30 more steps of uniform
+    random actions (members driven into each other). The states come from
+    the shipped model (the K=1 model's own for ``k1``, whose caches are
+    smaller); the step is the variant's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    key = (variant, deep)
+    if key not in _member_calls:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(1 + deep)
+        base = RobotWalk(device=dev)
+        if variant == "k1":
+            base.model = dataclasses.replace(base.model, member_manifold_k=1)
+        state, _ = base.reset(MEMBER_B, gen)
+        for _ in range(30 if deep else 0):
+            action = torch.rand((MEMBER_B, base.action_size), generator=gen, device=dev) * 2 - 1
+            state = base.step(state, action, gen)[0]
+        env = RobotWalk(device=dev)
+        env.model = dataclasses.replace(base.model, **MEMBER_VARIANTS[variant])
+        action = torch.rand((MEMBER_B, env.action_size), generator=gen, device=dev) * 2 - 1
+        _member_calls[key] = _spy_member_call(env, state, action, gen)
+    return _member_calls[key]
+
+
+def _first_envs(x, b):
+    """The first b envs of an env-last tensor, in the layout it has."""
+    return x[..., :b].contiguous() if x.is_contiguous() else x[..., :b]
+
+
+def _sub_call(call, b):
+    args, kw = call
+    args = [_first_envs(x, b) if torch.is_tensor(x) else x for x in args]
+    kw = dict(kw, warm_cache=tuple(_first_envs(x, b) for x in kw["warm_cache"]))
+    return args, kw
+
+
+def check_member(got, ref, j_dtype):
+    """Kernel #4's outputs against the plain version's. act, vid, lam_n0 and
+    lam_t0 exactly: the kernel makes the same choices from the same f32
+    values, and the warm impulses are cached values x WARMSTART. J within
+    one bf16 rounding (chip_smoke.MEMBER_J_RTOL; f32 J within MEMBER_TOL)
+    and the scalars within MEMBER_TOL: both compute them in the same f32
+    operations, but the order PyTorch takes for its small sums follows the
+    layout, which the batch changes (at B = 1 every component axis is
+    innermost), and an f32 value an ulp apart can round to the next bf16.
+    imp6 within MEMBER_TOL: the plain version sums it with atomics, the
+    kernel in pair order."""
+    (nj, ns), (fj, fs), x = got
+    (rnj, rns), (rfj, rfs), rx = ref
+    for name in ("act", "vid", "lam_n0", "lam_t0"):
+        bad = int((x[name] != rx[name]).sum())
+        assert bad == 0, f"{name}: {bad} of {x[name].numel()} differ"
+    tol = chip_smoke.MEMBER_TOL
+    jt = dict(rtol=chip_smoke.MEMBER_J_RTOL if j_dtype == torch.bfloat16 else tol, atol=tol)
+    assert nj.dtype == fj.dtype == j_dtype
+    torch.testing.assert_close(nj.float(), rnj.float(), **jt)
+    torch.testing.assert_close(fj.float(), rfj.float(), **jt)
+    torch.testing.assert_close(ns, rns, rtol=tol, atol=tol)
+    assert torch.equal(fs, rfs)
+    torch.testing.assert_close(x["imp6"], rx["imp6"], rtol=tol, atol=tol)
+
+
+def member_kernel_vs_plain(call, b):
+    """Kernel #4 (one launch) and the plain version on the first b envs."""
+    args, kw = _sub_call(call, b)
+    before = tsm.KERNEL.launches
+    got = tsm.member_contact_rows(*args, **kw)
+    torch.cuda.synchronize()
+    assert tsm.KERNEL.launches == before + 1
+    ref = tbt._member_contact_rows(*args, **kw)
+    check_member(got, ref, kw["j_dtype"])
+    return got, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 17, 256, MEMBER_B])
+@pytest.mark.parametrize("deep", [False, True], ids=["reset", "deep"])
+def test_member_kernel_matches_plain_on_spider_states(deep, b):
+    """Kernel #4 on the spider's real states (the shipped model: the top-48
+    cull, edge contacts, K = 4, bf16 J): B = 1 and 17 take one env per
+    block (17 blocks, 132 SMs), 256 one env per block, 4,096 sixteen."""
+    got, ref = member_kernel_vs_plain(member_call("shipped", deep), b)
+    pl, batch = tsm.KERNEL.last
+    assert batch == b and pl.envs == (16 if b == MEMBER_B else 1)
+    assert float(ref[2]["act"].sum()) > 0
+    if deep:
+        assert float(ref[2]["lam_n0"].abs().sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deep", [False, True], ids=["reset", "deep"])
+@pytest.mark.parametrize("variant", [v for v in MEMBER_VARIANTS if v != "shipped"])
+def test_member_kernel_matches_plain_on_model_variants(variant, deep):
+    """Kernel #4 with edge contacts off, K = 1, dense (every pair), f32 J
+    and strict_bullet, at B=4096 (dense at 256: its plain version builds
+    [120, 24, 20, B] temporaries)."""
+    got, ref = member_kernel_vs_plain(member_call(variant, deep),
+                                      256 if variant == "dense" else MEMBER_B)
+    assert float(ref[2]["act"].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["none", "stale"])
+def test_member_kernel_warm_cache_without_matches(cache):
+    """Caches with no id to match (all -1, or ids of other features):
+    zero warm impulses and imp6 on both sides."""
+    args, kw = member_call("shipped", True)
+    vid = kw["warm_cache"][0]
+    old = torch.full_like(vid, -1) if cache == "none" else (vid + 1) % 24 + 48 * 2
+    kw = dict(kw, warm_cache=(old, kw["warm_cache"][1]))
+    got, ref = member_kernel_vs_plain((args, kw), 256)
+    assert float(got[2]["lam_n0"].abs().sum()) == float(got[2]["imp6"].abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
+def test_member_kernel_with_an_exploded_env():
+    """One env with a NaN pose: no fault, and every other env's outputs
+    equal to the kernel's outputs on the clean state."""
+    args, kw = _sub_call(member_call("shipped", True), 64)
+    clean = tsm.member_contact_rows(*args, **kw)
+    bad = list(args)
+    for i, body in ((2, 5), (3, 9)):  # pos and quat of two member bodies
+        t = args[i].movedim(-1, 0).contiguous()
+        t[7, body] = float("nan")
+        bad[i] = t.movedim(0, -1)
+    got = tsm.member_contact_rows(*bad, **kw)
+    torch.cuda.synchronize()
+    keep = [e for e in range(64) if e != 7]
+
+    def flat(out):
+        (nj, ns), (fj, fs), x = out
+        return [nj, ns, fj, fs, *x.values()]
+
+    for a, c in zip(flat(got), flat(clean)):
+        assert torch.equal(a[..., keep], c[..., keep])
+
+
+@pytest.mark.gpu
+def test_member_kernel_on_scrambled_poses():
+    """Random orientations and jittered positions of every body (deep,
+    generic overlaps): edge-edge contacts replace slot 0 in some pairs, and
+    the kernel still matches the plain version."""
+    args, kw = _sub_call(member_call("shipped", False), 256)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pos, quat = args[2], args[3]
+    pos = pos + (torch.rand(pos.shape, generator=g, device="cuda") - 0.5) * 0.2
+    q = torch.randn(quat.shape, generator=g, device="cuda")
+    args[2] = pos.movedim(-1, 0).contiguous().movedim(0, -1)
+    args[3] = (q / q.norm(dim=1, keepdim=True)).movedim(-1, 0).contiguous().movedim(0, -1)
+    got, ref = member_kernel_vs_plain((args, kw), 256)
+    v = args[1].np_hull.shape[1]
+    assert int((ref[2]["vid"] >= 2 * v).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_member_kernel_launches_once_per_physics_step():
+    """The batched spider on the card: kernel #4 once per physics step,
+    the reset's settle steps included, and kernel #1 as often."""
+    from evomotion_tpu_torch.envs.robot import RobotWalk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    env = RobotWalk(device=dev)
+    m0, s0 = tsm.KERNEL.launches, tsp.KERNEL.launches
+    state, _ = env.reset(64, gen)
+    for _ in range(5):
+        action = torch.rand((64, env.action_size), generator=gen, device=dev) * 2 - 1
+        state = env.step(state, action, gen)[0]
+    torch.cuda.synchronize()
+    steps = env.settle_total + 5
+    assert tsm.KERNEL.launches - m0 == tsp.KERNEL.launches - s0 == steps
+
+
+@pytest.mark.gpu
+def test_member_plan_sums_match_the_kernel():
+    """The wrapper's statics words and shared-memory sums equal the
+    kernel's, for the spider and at the caps; two blocks of 16 envs fit an
+    SM."""
+    args, kw = member_call("shipped", False)
+    st = args[1]
+    meta = st.member_meta
+    lib = tsm.KERNEL.lib()
+    assert lib.member_meta_words(meta.nb, meta.u, meta.p, meta.v, meta.f, meta.ne) == \
+        meta.words.numel()
+    for dims in ((meta.nb, meta.u, meta.p, 48, meta.v, meta.f, meta.ne),
+                 (64, 40, 780, 780, tsm.MAX_V, 92, tsm.MAX_EDGES)):
+        for envs in tsm.ENVS:
+            assert lib.member_smem_bytes(*dims, envs) == tsm.smem_bytes(*dims, envs)
+    sh = tsm.shapes(args[0], st)
+    pl = tsm.KERNEL.plan_for(meta, sh, MEMBER_B, "cuda")
+    assert pl.envs == 16 and tsm.KERNEL.blocks_per_sm(pl) >= 2
