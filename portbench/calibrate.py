@@ -3,18 +3,14 @@
     python3 portbench/calibrate.py --workload <name> --seeds <a,b,...> [--out <file>]
 
 For each seed, in one process: the program's set-up through its checked
-iterations, then the numbers compared for
+iterations, then the cell's adapter's ``calibration()``: the numbers
+compared for the program against the reference (``program``: sound runs,
+the lower readings), for the control (the reference one precision below the
+configuration's in the program's place) and for each planted fault the
+family names (for PPO: ``control`` with TF32 matrix products and J columns
+in fp8 e4m3, ``half_batch`` with half of the env batch left out).
 
-- ``program``: the program against the reference (sound runs: the lower
-  readings);
-- ``control``: the reference one precision below the configuration's
-  (TF32 matrix products, J columns rounded to fp8 e4m3) in the program's
-  place;
-- ``half_batch``: the reference's updates with half of the env batch left
-  out, the mean taken over the rest (a planted fault).
-
-A state left unchanged reads 1 on ``change`` by its definition and needs no
-run. Each seed prints one JSON line (also appended to ``--out``). The
+Each seed prints one JSON line (also appended to ``--out``). The
 benchmark's own runs never run this. Needs the card.
 """
 
@@ -31,7 +27,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 from portbench import harness  # noqa: E402
-from portbench.reference import compare  # noqa: E402
 
 
 def readings(cell: harness.Cell, seed: int, device) -> dict:
@@ -40,17 +35,7 @@ def readings(cell: harness.Cell, seed: int, device) -> dict:
     adapter.setup()
     t_setup = time.perf_counter() - t0
     adapter.release()
-    cap = adapter.cap
-    t0 = time.perf_counter()
-    ref = compare.reference_outputs(cell.config, cap, device)
-    t_ref = time.perf_counter() - t0
-    out = {"seed": seed, "setup_s": t_setup, "reference_s": t_ref,
-           "program": compare.gaps(compare.program_outputs(cap), ref)}
-    out["control"] = compare.gaps(compare.reference_outputs(
-        cell.config, cap, device, tf32=True, row_dtype="fp8"), ref)
-    out["half_batch"] = compare.gaps(compare.reference_outputs(
-        cell.config, cap, device, half=True, physics=False), ref)
-    return out
+    return {"seed": seed, "setup_s": t_setup, **adapter.calibration()}
 
 
 def main(argv=None) -> int:

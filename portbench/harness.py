@@ -6,7 +6,9 @@ family lives in a file of its own, found by name: ``BENCHMARK.json`` (at the
 checkout's root) names each cell's configuration and traffic;
 ``configs/<name>.json`` and ``traffic/<name>.json`` hold them;
 ``limits/<cell>.json`` holds the cell's limits for the numbers compared;
-``trainers/<agent>.py`` adapts the configuration's trainer;
+``trainers/<agent>.py`` adapts the configuration's trainer and names the
+numbers it compares, and ``counts/agents/<agent>.py`` counts its networks'
+operations (both found by the configuration's ``agent``);
 ``metrics/<metric>.py`` reads each metric.
 """
 
@@ -42,9 +44,24 @@ def load_json(path: Path) -> Any:
         return json.load(f)
 
 
+def family_module(path: str, cell: str):
+    """The agent family's module ``portbench/<path>.py`` (``path`` in dots);
+    a cell whose family lacks it stops the run, naming the file."""
+    name = f"portbench.{path}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise SystemExit(f"workload {cell!r}: its agent family has no "
+                         f"portbench/{path.replace('.', '/')}.py") from None
+
+
 class Cell:
     """A workload of ``BENCHMARK.json`` with its configuration, traffic and
-    limits, and the names of the metrics it reports."""
+    limits, its agent family's adapter and count modules, and the names of
+    the metrics it reports. A family without either module stops it here,
+    before any set-up."""
 
     def __init__(self, name: str, manifest: dict | None = None):
         manifest = load_json(ROOT / "BENCHMARK.json") if manifest is None else manifest
@@ -57,6 +74,9 @@ class Cell:
         self.config = load_json(ROOT / entry["file"])
         self.traffic = load_json(HERE / "traffic" / f"{self.workload['traffic']}.json")
         self.limits = load_json(HERE / "limits" / f"{name}.json")
+        agent = self.config["agent"]
+        self.adapter_module = family_module(f"trainers.{agent}", name)
+        self.counts_module = family_module(f"counts.agents.{agent}", name)
 
         def mine(metrics):
             return [m["name"] for m in metrics if name in m.get("workloads", [name])]
@@ -92,8 +112,7 @@ class Run:
 
 def adapter_for(cell: Cell, seed: int, device):
     """The cell's adapter, ``trainers/<agent>.py``'s ``Adapter``."""
-    mod = importlib.import_module(f"portbench.trainers.{cell.config['agent']}")
-    return mod.Adapter(cell.config, cell.traffic, seed, device)
+    return cell.adapter_module.Adapter(cell.config, cell.traffic, seed, device)
 
 
 def measure(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float,

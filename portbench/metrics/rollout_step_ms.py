@@ -6,10 +6,11 @@ LAYER = "env rollout"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "env_steps_per_s"
+SPAN = "rollout"
 
 
 def read(run):
-    times = run.window_phase_s("rollout")
+    times = run.window_phase_s(SPAN)
     if not times:
         return None
     return sum(times) / len(times) / run.config["agent_parameters"]["horizon"] * 1e3

@@ -6,8 +6,9 @@ LAYER = "trainer update"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "env_steps_per_s"
+SPAN = "update"
 
 
 def read(run):
-    times = run.window_phase_s("update")
+    times = run.window_phase_s(SPAN)
     return sum(times) / len(times) * 1e3 if times else None

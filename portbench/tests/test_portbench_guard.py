@@ -28,6 +28,8 @@ def test_reference_imports_neither_jax_nor_the_program():
             "for m in ('jax', 'jaxlib', 'flax', 'evomotion_tpu', 'evomotion_tpu_torch'):\n"
             "    sys.modules[m] = None\n"
             "import portbench.reference.compare, portbench.counts.sweep\n"
+            "import portbench.counts.member, portbench.counts.networks\n"
+            "import portbench.counts.agents.ppo_gae, portbench.counts.agents.ppo_gae_liquid\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT, capture_output=True,
                          text=True, timeout=300)

@@ -75,20 +75,35 @@ def test_moves_is_reported_by_each_of_its_cells(metric):
         assert metric["moves"] in harness.Cell(cell, MANIFEST).end_to_end
 
 
-@pytest.mark.parametrize("w", MANIFEST["workloads"], ids=[w["name"] for w in MANIFEST["workloads"]])
-def test_cell_files(w):
-    """Each cell's configuration, traffic and limits exist, its agent has an
-    adapter, and it reports set-up, another end-to-end metric and a
-    per-layer metric."""
+def check_cell(w: dict, manifest: dict) -> None:
+    """The cell's configuration, traffic and limits exist, its agent family
+    has an adapter and a count module, its limits name numbers that its
+    adapter compares, and it reports set-up, another end-to-end metric and
+    a per-layer metric."""
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
     assert NAME.match(w["config"]) and NAME.match(w["traffic"])
-    cell = harness.Cell(w["name"], MANIFEST)
+    cell = harness.Cell(w["name"], manifest)
     assert cell.config["name"] == w["config"]
     assert cell.traffic["num_envs"] > 0 and cell.traffic["checked_iterations"] == 3
-    assert cell.limits and set(cell.limits) <= set(compare.NUMBERS)
-    importlib.import_module(f"portbench.trainers.{cell.config['agent']}")
+    assert cell.limits and set(cell.limits) <= set(cell.adapter_module.NUMBERS)
+    assert callable(cell.adapter_module.Adapter)
+    assert callable(cell.counts_module.iteration_flops)
     assert "setup_s" in cell.end_to_end and len(cell.end_to_end) >= 2 and cell.per_layer
+    for m in manifest["per_layer"]:
+        if m["name"] in cell.per_layer:
+            assert m["moves"] in cell.end_to_end, m["name"]
+
+
+@pytest.mark.parametrize("w", MANIFEST["workloads"], ids=[w["name"] for w in MANIFEST["workloads"]])
+def test_cell_files(w):
+    check_cell(w, MANIFEST)
+
+
+@pytest.mark.parametrize("family", ["ppo_gae", "ppo_gae_liquid"])
+def test_ppo_adapters_compare_the_reference_numbers(family):
+    mod = importlib.import_module(f"portbench.trainers.{family}")
+    assert mod.NUMBERS == compare.NUMBERS
 
 
 def test_configurations():

@@ -10,19 +10,22 @@ import torch
 from portbench import harness
 
 
+# every width or size key an agent family's parameters may have, and its
+# tiny value: each that a configuration has is cut
+TINY = {"hidden_size": 16, "critic_hidden_size": 16, "neuron_number": 8,
+        "unfolding_steps": 3, "replay_buffer_size": 1024}
+
+
 def tiny_cell(name: str, envs: int = 3, horizon: int = 3) -> harness.Cell:
     """``name``'s cell with one settle frame per reset loop, one solver
-    iteration, small networks, two epochs and ``envs`` envs."""
+    iteration, small networks (:data:`TINY`), two epochs and ``envs`` envs."""
     cell = harness.Cell(name)
     cell.config["env_parameters"]["reset_frames"] = 1
     cell.config["physics"]["n_iterations"] = 1
     cell.config["sweep"]["n_iterations"] = 1
     a = cell.config["agent_parameters"]
     a.update(horizon=horizon, epoch=2)
-    if "hidden_size" in a:
-        a["hidden_size"] = 16
-    else:
-        a.update(neuron_number=8, unfolding_steps=3)
+    a.update({k: v for k, v in TINY.items() if k in a})
     cell.traffic["num_envs"] = envs
     return cell
 

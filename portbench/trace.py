@@ -5,11 +5,18 @@ takes (a copy of the port's ``train.profiling.StepTimer``, which waits for
 the card at the end of each phase), extended to open a profiler span per
 phase. :func:`profile` runs one call under ``torch.profiler`` and reads the
 chrome trace it exports (the arithmetic of the port's
-``tools._profile.device_events``, with timestamps) into a :class:`Trace`.
+``tools._profile.device_events``, with timestamps) into a :class:`Trace`:
+the device's events, the two phases, the program's own spans (its
+``train.profiling.span`` ranges and any other user annotation) and each
+launch's host time, by the ``correlation`` that ties it to its device
+event. :meth:`Trace.launched_in` charges device events to the spans that
+launched them, as the port's ``train.profiling.span_table`` does, with the
+benchmark's own arithmetic.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -21,6 +28,8 @@ from typing import NamedTuple
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+PHASES = ("rollout", "update")  # the phases PhaseTimer opens (the trainers name them)
 
 
 class PhaseTimer:
@@ -49,12 +58,15 @@ class Event(NamedTuple):
     cat: str
     ts: float  # microseconds
     dur: float
+    corr: int | None  # the profiler's correlation id, where it gives one
 
 
 class Trace(NamedTuple):
     device: list  # kernels, copies and fills
     spans: list  # the phases' spans (user annotations on the host)
     host_ops: list  # top-level host operators
+    program_spans: list  # every other user annotation: the program's spans
+    launches: dict  # correlation id -> host time of the launch (microseconds)
 
     def window(self) -> tuple[float, float] | None:
         """First span's start to last span's end, in microseconds."""
@@ -69,6 +81,33 @@ class Trace(NamedTuple):
         spans = [(e.ts, e.ts + e.dur) for e in self.spans if e.name == span_name]
         return sum(1 for k in self.device if k.cat == "kernel"
                    and any(a <= k.ts and k.ts + k.dur <= b for a, b in spans))
+
+    def launched_in(self, span_name: str) -> tuple[int, float]:
+        """(kernels, device seconds) of the device events launched inside a
+        span called ``span_name``, a phase or a program span, with the spans
+        nested in it: those whose launch's host time lies in ``[start,
+        end)`` of such a span, wherever the card ran them. The seconds count
+        copies and fills too; a device event whose launch is not in the
+        trace counts nowhere."""
+        ivs = sorted((e.ts, e.ts + e.dur) for e in (*self.spans, *self.program_spans)
+                     if e.name == span_name)
+        starts, ends = [], []
+        for a, b in ivs:
+            if ends and a <= ends[-1]:
+                ends[-1] = max(ends[-1], b)
+            else:
+                starts.append(a)
+                ends.append(b)
+        kernels, seconds = 0, 0.0
+        for e in self.device:
+            t = self.launches.get(e.corr)
+            if t is None:
+                continue
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < ends[i]:
+                kernels += e.cat == "kernel"
+                seconds += e.dur * 1e-6
+        return kernels, seconds
 
     def busy(self) -> list[tuple[float, float]]:
         """The union of the device's operation intervals inside the window."""
@@ -122,18 +161,21 @@ def _read(path: str) -> Trace:
     with open(path) as f:
         raw = json.load(f)
     events = raw["traceEvents"] if isinstance(raw, dict) else raw
-    device, spans, ops = [], [], []
+    device, spans, program_spans, ops, launches = [], [], [], [], {}
     for e in events:
         if e.get("ph") != "X":
             continue
         cat = e.get("cat", "")
-        ev = Event(e.get("name", ""), cat, float(e.get("ts", 0.0)), float(e.get("dur", 0.0)))
+        ev = Event(e.get("name", ""), cat, float(e.get("ts", 0.0)), float(e.get("dur", 0.0)),
+                   e.get("args", {}).get("correlation"))
         if cat in DEVICE_CATS:
             device.append(ev)
-        elif cat == "user_annotation" and ev.name in ("rollout", "update"):
-            spans.append(ev)
+        elif cat == "user_annotation":
+            (spans if ev.name in PHASES else program_spans).append(ev)
         elif cat == "cpu_op":
             ops.append(ev)
+        elif cat in LAUNCH_CATS and ev.corr is not None:
+            launches[ev.corr] = ev.ts
     # keep the outermost operators: those no other operator contains
     ops.sort(key=lambda e: (e.ts, -e.dur))
     top, end = [], -1.0
@@ -141,7 +183,7 @@ def _read(path: str) -> Trace:
         if e.ts >= end:
             top.append(e)
             end = e.ts + e.dur
-    return Trace(device, spans, top)
+    return Trace(device, spans, top, program_spans, launches)
 
 
 def profile(fn) -> tuple[Trace, float]:

@@ -12,10 +12,13 @@ continues the same state.
 from __future__ import annotations
 
 import random
+import time
 
 import torch
 
 from ..reference import compare, nets
+
+NUMBERS = compare.NUMBERS  # the numbers compared, as limits/<cell>.json names them
 
 
 def _flat_state(env_state) -> dict:
@@ -187,3 +190,23 @@ class Adapter:
         """The numbers compared, of the program against the reference."""
         ref = compare.reference_outputs(self.config, self.cap, self.device)
         return compare.gaps(compare.program_outputs(self.cap), ref)
+
+    def calibration(self) -> dict:
+        """What the limits are set from (``calibrate.py``), each the numbers
+        compared against the reference: ``program`` (sound runs: the lower
+        readings), ``control`` (the reference one precision below the
+        configuration's, TF32 matrix products and J columns in fp8 e4m3, in
+        the program's place) and ``half_batch`` (the reference's updates
+        with half of the env batch left out, the mean over the rest: a
+        planted fault); and ``reference_s``, the seconds of one reference
+        run. A state left unchanged reads 1 on ``change`` by its definition
+        and needs no run."""
+        t0 = time.perf_counter()
+        ref = compare.reference_outputs(self.config, self.cap, self.device)
+        out = {"reference_s": time.perf_counter() - t0,
+               "program": compare.gaps(compare.program_outputs(self.cap), ref)}
+        out["control"] = compare.gaps(compare.reference_outputs(
+            self.config, self.cap, self.device, tf32=True, row_dtype="fp8"), ref)
+        out["half_batch"] = compare.gaps(compare.reference_outputs(
+            self.config, self.cap, self.device, half=True, physics=False), ref)
+        return out

@@ -1,1 +1,1 @@
-from .ppo import Adapter  # noqa: F401  (the batched PPO-GAE trainer, MLP networks)
+from .ppo import NUMBERS, Adapter  # noqa: F401  (the batched PPO-GAE trainer, MLP networks)

@@ -1,1 +1,1 @@
-from .ppo import Adapter  # noqa: F401  (the batched PPO-GAE trainer, liquid networks)
+from .ppo import NUMBERS, Adapter  # noqa: F401  (the batched PPO-GAE trainer, liquid networks)
